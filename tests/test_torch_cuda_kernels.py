@@ -1,0 +1,93 @@
+"""The hand-written CUDA kernels against their plain torch versions on the
+card. Marked ``cuda``: they skip without a CUDA device (a CUDA kernel has no
+CPU mode). Run them on a machine with the card with
+``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+
+Tolerances are those of the CPU parity tests: normal and trend rtol 1e-4,
+atol 1e-3 (2e-3 above k = 32), variance rtol 1e-3 atol 1e-4, variogram and
+gains rtol 1e-4 atol 1e-5, identical ok flags; the daily contraction rtol
+and atol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from topotpu.io.synthetic import make_world
+from topotpu_torch.io.synthetic import krig_rows_from_world
+from topotpu_torch.kernels.krig_normals import krig_normals_fused, krig_normals_fused_ref
+from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
+
+pytestmark = pytest.mark.cuda
+
+ROW_NAMES = ("xyz3k", "dist_t", "mask_t", "covs_t", "cell_t", "norm_t",
+             "vario_t", "acovs_t")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rows(dev, C, k, qa=3, seed=0):
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, nrows=30, ncols=30, n_stations=80, ndays=30)
+    rows, cols = rng.integers(0, 30, C), rng.integers(0, 30, C)
+    r = krig_rows_from_world(world, rows, cols, min(k, 80), month=3)
+    r["mask_t"][-1, ::5] = 0.0
+    r["dist_t"] *= r["mask_t"]
+    r["acovs_t"] = r["acovs_t"][: qa * k]
+    return [torch.from_numpy(r[n]).to(dev) for n in ROW_NAMES]
+
+
+@pytest.mark.parametrize("k, C, weight_kernel, qa", [
+    (1, 37, "bisquare", 3), (16, 200, "gaussian", 2), (32, 1000, "uniform", 3),
+    (33, 129, "bisquare", 0), (64, 513, "bisquare", 3),
+])
+def test_krig_normals_kernel_matches_plain(dev, k, C, weight_kernel, qa):
+    rows = _rows(dev, C, k, qa)
+    n0 = krig_normals_fused.launches
+    got = krig_normals_fused(*rows, weight_kernel=weight_kernel)
+    assert krig_normals_fused.launches == n0 + 1
+    want = krig_normals_fused_ref(*rows, weight_kernel=weight_kernel)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got[2], want[2])
+    ok = want[2] > 0.5
+    atol_n = 2e-3 if k > 32 else 1e-3
+    for row in (0, 3):
+        np.testing.assert_allclose(got[row, ok], want[row, ok], rtol=1e-4, atol=atol_n)
+    np.testing.assert_allclose(got[1, ok], want[1, ok], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got[4:7], want[4:7], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[8:, ok], want[8:, ok], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("C, S, k, D", [(1, 5, 1, 1), (1000, 96, 12, 31), (777, 512, 32, 2977)])
+def test_scatter_daily_kernel_matches_plain(dev, C, S, k, D):
+    rng = np.random.default_rng(1)
+    idx = rng.integers(0, S, (k, C)).astype(np.int32)
+    idx[min(1, k - 1)] = idx[0]
+    planes = [
+        torch.from_numpy(idx).to(dev),
+        torch.from_numpy(rng.normal(size=(k, C)).astype(np.float32)).to(dev),
+        torch.from_numpy((rng.uniform(size=(k, C)) > 0.1).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.normal(size=(S, D)).astype(np.float32)).to(dev),
+    ]
+    got = scatter_daily(*planes)
+    want = scatter_daily_ref(*planes)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_bad_inputs(dev):
+    rows = _rows(dev, 64, 8)
+    with pytest.raises(TypeError):
+        krig_normals_fused(*(r.double() for r in rows))
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = list(rows)
+        bad[1] = rows[1].T.contiguous().T
+        krig_normals_fused(*bad)
+    with pytest.raises(ValueError, match="outside"):
+        krig_normals_fused(*_rows(dev, 8, 65))

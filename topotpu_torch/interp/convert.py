@@ -1,0 +1,57 @@
+"""Carry the JAX package's per-tile state into the port's tensors.
+
+The inputs are ``topotpu.interp.point`` TileInputs / PairTileInputs whose
+fields are numpy arrays (``np.asarray`` of each JAX field), or any
+NamedTuple with the same field names. Float fields become ``dtype`` tensors
+(float32 by default), the masks bool tensors, all on ``device``. Station
+variogram parameters and the other tile inputs are this system's weights;
+``InterpParams`` is shared unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from topotpu.core.config import TopoConfig
+from topotpu_torch.core.device import COMPUTE_DTYPE
+from topotpu_torch.interp.point import PairTileInputs, TileInputs, VarFields
+
+
+def _tensor(a, device, dtype):
+    # np.array copies: arrays handed over from JAX are read-only
+    return torch.as_tensor(np.array(a), device=device).to(dtype)
+
+
+def tile_inputs_from_numpy(ti, device, dtype: torch.dtype = COMPUTE_DTYPE) -> TileInputs:
+    """A TileInputs of numpy arrays -> the port's TileInputs on ``device``."""
+    return TileInputs(
+        **{
+            name: _tensor(getattr(ti, name), device,
+                          torch.bool if name in ("cell_mask", "stn_valid") else dtype)
+            for name in TileInputs._fields
+        }
+    )
+
+
+def pair_inputs_from_numpy(pair, device, dtype: torch.dtype = COMPUTE_DTYPE) -> PairTileInputs:
+    """A PairTileInputs of numpy arrays -> the port's PairTileInputs."""
+    return PairTileInputs(
+        geom=tile_inputs_from_numpy(pair.geom, device, dtype),
+        b=VarFields(
+            **{name: _tensor(getattr(pair.b, name), device, dtype)
+               for name in VarFields._fields}
+        ),
+    )
+
+
+def fixed_scales_from_config(cfg: TopoConfig, n_vars: int = 1) -> np.ndarray:
+    """Run-global int16 pack lattice, (6 * n_vars,) float32 of per-plane
+    (scale, offset): dailies and normals on [pack_temp_lo, pack_temp_hi], se
+    on [0, pack_se_hi]. The arithmetic of ``TileEngine._fixed_scales``."""
+    d_scale = (cfg.pack_temp_hi - cfg.pack_temp_lo) / 65500.0
+    d_off = 0.5 * (cfg.pack_temp_hi + cfg.pack_temp_lo)
+    s_scale = cfg.pack_se_hi / 65500.0
+    s_off = 0.5 * cfg.pack_se_hi
+    one = np.array([d_scale, d_off, d_scale, d_off, s_scale, s_off], np.float32)
+    return np.tile(one, n_vars)

@@ -1,0 +1,123 @@
+"""Tile inputs from a synthetic world, on an explicit device.
+
+The world itself comes from ``topotpu.io.synthetic.make_world`` (numpy only);
+this is the torch counterpart of its ``tile_inputs_from_world``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from topotpu.io.synthetic import SyntheticWorld
+from topotpu.oracle.numpy_ref import haversine_km
+from topotpu_torch.core.device import COMPUTE_DTYPE
+from topotpu_torch.interp.point import (
+    MonthLayout,
+    TileInputs,
+    group_days_by_month,
+    month_layout,
+)
+
+
+def krig_rows_from_world(
+    world: SyntheticWorld,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    k: int,
+    month: int = 0,
+    stn_valid: np.ndarray | None = None,
+) -> dict:
+    """Inputs of ``kernels.krig_normals.krig_normals_fused`` for the cells
+    (rows, cols) of ``world`` and one month, as float32 numpy (rows, C)
+    planes, plus the neighbour ``idx`` (C, k).
+
+    The k nearest valid stations are chosen in float64 numpy, so the JAX
+    package and the port can be fed identical neighbourhoods. Trend
+    covariates are (elev, tdi, lst_month), anomaly covariates (elev, x_km,
+    y_km); cell rows 0-2 are the trend covariates, rows 3-5 the anomaly
+    ones. Station variogram parameters are the world's true ones."""
+    lon, lat = world.grid.cell_lonlat(rows, cols)
+    S = world.n_stations
+    valid = np.ones(S, bool) if stn_valid is None else np.asarray(stn_valid, bool)
+    d = haversine_km(lon[:, None], lat[:, None], world.stn_lon[None], world.stn_lat[None])
+    d = np.where(valid[None, :], d, np.inf)
+    idx = np.argsort(d, axis=1, kind="stable")[:, :k]
+    dist = np.take_along_axis(d, idx, axis=1)
+    mask = np.isfinite(dist)
+    dist = np.where(mask, dist, 0.0)
+
+    kx = 111.32 * np.cos(np.deg2rad(world.stn_lat.mean()))
+    lonr, latr = np.deg2rad(world.stn_lon), np.deg2rad(world.stn_lat)
+    xyz = np.stack(
+        [np.cos(latr) * np.cos(lonr), np.cos(latr) * np.sin(lonr), np.sin(latr)], -1
+    )
+    vario = np.broadcast_to(np.asarray(world.true_vario, np.float64), (S, 3))
+
+    def planes(per_stn):  # (S, n) -> (n k, C), covariate-major
+        g = per_stn[idx]  # (C, k, n)
+        return g.transpose(2, 1, 0).reshape(-1, len(idx))
+
+    cell = np.zeros((8, len(idx)))
+    cell[:3] = [world.elev[rows, cols], world.tdi[rows, cols], world.lst[month, rows, cols]]
+    cell[3:6] = [world.elev[rows, cols], lon * kx, lat * 111.32]
+    out = dict(
+        xyz3k=planes(xyz),
+        dist_t=dist.T,
+        mask_t=mask.T,
+        covs_t=planes(np.stack([world.stn_elev, world.stn_tdi, world.stn_lst[:, month]], 1)),
+        cell_t=cell,
+        norm_t=planes(world.stn_norm[:, month : month + 1]),
+        vario_t=planes(vario),
+        acovs_t=planes(np.stack([world.stn_elev, world.stn_lon * kx, world.stn_lat * 111.32], 1)),
+    )
+    out = {name: np.ascontiguousarray(a, np.float32) for name, a in out.items()}
+    out["idx"] = idx
+    return out
+
+
+class _Days:
+    """Minimal DaysMetadata stand-in: the layout needs only month_idx."""
+
+    def __init__(self, month_idx: np.ndarray):
+        self.month_idx = month_idx
+        self.ndays = len(month_idx)
+
+
+def tile_inputs_from_world(
+    world: SyntheticWorld,
+    days_month_idx: np.ndarray,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    device: torch.device | str,
+    dtype: torch.dtype = COMPUTE_DTYPE,
+    stn_vario: np.ndarray | None = None,
+) -> tuple[TileInputs, MonthLayout]:
+    """TileInputs for the cells (rows, cols) of ``world`` on ``device``.
+    Station variogram parameters default to the world's true ones; every
+    station is valid in every month."""
+    lon, lat = world.grid.cell_lonlat(rows, cols)
+    S = world.n_stations
+    if stn_vario is None:
+        stn_vario = np.tile(np.array(world.true_vario, np.float64), (S, 12, 1))
+    layout = month_layout(_Days(days_month_idx))
+    anoms = group_days_by_month(world.stn_anoms.astype(np.float32), layout)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device).to(dtype)  # noqa: E731
+    ti = TileInputs(
+        cell_lon=t(lon),
+        cell_lat=t(lat),
+        cell_elev=t(world.elev[rows, cols]),
+        cell_tdi=t(world.tdi[rows, cols]),
+        cell_lst=t(world.lst[:, rows, cols].T),
+        cell_mask=torch.as_tensor(world.landmask[rows, cols], device=device),
+        stn_lon=t(world.stn_lon),
+        stn_lat=t(world.stn_lat),
+        stn_elev=t(world.stn_elev),
+        stn_tdi=t(world.stn_tdi),
+        stn_lst=t(world.stn_lst),
+        stn_norm=t(world.stn_norm),
+        stn_vario=t(stn_vario),
+        stn_valid=torch.ones((S, 12), dtype=torch.bool, device=device),
+        stn_anoms=t(np.moveaxis(anoms, 1, 0)),
+    )
+    return ti, layout
