@@ -7,12 +7,17 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 
 1. environment: torch version, the device, and ``nvidia-smi``'s name and
    power limit (a line of its own). No CUDA device: exit non-zero.
-2. build: both kernels from ``topotpu_torch/kernels/csrc/*.cu`` with nvcc.
+2. build: the three kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
+   with nvcc, all started at once.
 3. kernel vs plain version on the card at production shapes (65,536 cells,
    a 512-station pool, k = 32 and 64; the daily contraction at D = 744 and
    2,976), with the CPU parity tests' tolerances on 99.9 % of values, a cap
    on every value and a float64 run as arbiter (see ``_compare_krig``), and
-   CUDA-event times.
+   CUDA-event times. Then the fused OK solve at its own API, both entries
+   (pair distances, xyz), B = 65,536 and k = 32 and 64: one call of each
+   entry with the launch counters from 0, then the comparison with the
+   plain version (``tests/test_pallas_krig.py``'s tolerances on every value,
+   ok flags identical, masked weights exactly 0).
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. Both kernels' launch counters
@@ -20,7 +25,21 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    float64 numpy oracle and the world's true normals.
 5. the reconcile on the lattice at one 128 x 128 production tile with
    crossing variables: no cell where both are ok may have tmax < tmin.
-6. a profiler breakdown of one step, then one JSON line per kernel and, as
+6. a profiler breakdown of one step.
+7. the station-side stages at the reference's full network size: 10,000
+   stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
+   krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
+   share, the July empirical variograms of 256 sampled stations (recomputed
+   from the same month's residuals) held against the float64 loop oracle,
+   and the timed run's fits of them against scipy's; then the LOO x-val
+   of normals at k = 32 (accuracy bars, July normals of 256 stations against
+   the float64 pipeline oracle run with the station left out), the nnghs
+   sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
+   anomaly sweep over (8, 16, 24, 32). The ``krig_normals`` launch counter
+   must rise by 12 per x-val run. Each stage's wall time and the peak device
+   memory are printed.
+8. the card's name and power limit, one JSON line of kernels (each launch
+   count is the sum over the main-path runs, each counted from 0) and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX (the shared ``topotpu`` modules it uses, the
@@ -41,6 +60,12 @@ NDAYS = 365
 ORACLE_CELLS = 256
 ORACLE_BUDGET_S = 60.0
 HALF_STEP_C = 1.2e-3  # half of the run-global lattice step, 160 C / 65500 / 2
+# station-side slice: config8's grid with config7's network (~8.5 km spacing)
+ST_SIDE = 1024
+ST_STATIONS = 10000
+ST_START, ST_END = "2015-01-01", "2018-12-31"  # one 4-year chunk, 1,461 days
+ST_SAMPLE = 256       # stations held against the float64 oracles
+KERNELS = ("krig_normals", "scatter_daily", "ok_solve")
 
 
 def log(msg: str) -> None:
@@ -65,16 +90,19 @@ def phase_environment():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from topotpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        paths = list(pool.map(_build.build, KERNELS))
     reports = []
-    for name in ("krig_normals", "scatter_daily"):
-        path = _build.build(name)
+    for path in paths:
         log_text = path.with_name(path.name + ".log").read_text()
         reports += [ln.strip() for ln in log_text.splitlines()
                     if "registers" in ln or "spill" in ln]
-    log(f"[build] nvcc {_build.find_nvcc()} built both kernels in "
+    log(f"[build] nvcc {_build.find_nvcc()} built {', '.join(KERNELS)} in "
         f"{time.perf_counter() - t0:.3f} s")
     for ln in reports:
         log(f"[build] ptxas: {ln}")
@@ -161,12 +189,9 @@ def _compare_krig(got, want, want64, k):
         float(np.abs(want[0, ok] - want64[0, ok]).max())
 
 
-def phase_kernels(world, dev):
-    import torch
-
+def neighbour_planes(world):
+    """The 64-neighbour kernel planes of every cell of the benchmark world."""
     from topotpu_torch.io.synthetic import krig_rows_from_world
-    from topotpu_torch.kernels.krig_normals import krig_normals_fused, krig_normals_fused_ref
-    from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
 
     C = N_SIDE * N_SIDE
     rows, cols = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
@@ -174,6 +199,16 @@ def phase_kernels(world, dev):
     rows64 = krig_rows_from_world(world, rows, cols, 64, month=6)
     log(f"[kernels] neighbour planes for {C} cells built on the host in "
         f"{time.perf_counter() - t0:.3f} s")
+    return rows64
+
+
+def phase_kernels(rows64, dev):
+    import torch
+
+    from topotpu_torch.kernels.krig_normals import krig_normals_fused, krig_normals_fused_ref
+    from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
+
+    C = N_SIDE * N_SIDE
     report = {}
     for k, weight_kernel in ((32, "bisquare"), (32, "gaussian"), (32, "uniform"),
                              (64, "bisquare")):
@@ -216,6 +251,82 @@ def phase_kernels(world, dev):
         if D == 744:
             report["scatter_daily"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     return report
+
+
+def _ok_inputs(rows64, k, dev, seed=3):
+    """Fused OK-solve inputs at k from the benchmark planes: (k, k, B) pair
+    distances, (3k, B) xyz rows, (k, B) point distances and mask (with
+    ``_krig_planes``' holes), per-cell nugget, psill and range."""
+    import torch
+
+    from topotpu_torch.geo.distance import pairwise_km_from_xyz
+
+    xyz3k, dist_t, mask_t = _krig_planes(rows64, k, dev)[:3]
+    B = dist_t.shape[1]
+    xyz = xyz3k.reshape(3, k, B).permute(2, 1, 0)
+    dp = pairwise_km_from_xyz(xyz, xyz).permute(1, 2, 0).contiguous()
+    rng = np.random.default_rng(seed)
+    par = [torch.from_numpy(rng.uniform(lo, hi, B).astype(np.float32)).to(dev)
+           for lo, hi in ((0.01, 0.1), (0.5, 2.0), (30.0, 150.0))]
+    return dp, xyz3k, dist_t, mask_t, par
+
+
+def _compare_ok(got, want, mask_t, k):
+    """Kernel vs its plain version with ``tests/test_pallas_krig.py``'s
+    tolerances on every value: weights rtol 2e-4, atol 2e-5 (5e-5 above
+    k = 32), variances rtol 2e-3, atol 1e-4; ok flags identical and masked
+    weights exactly 0."""
+    got, want = ([t.cpu().numpy() for t in r] for r in (got, want))
+    np.testing.assert_array_equal(got[2], want[2], err_msg="ok flags")
+    if np.any(got[0][mask_t.cpu().numpy() < 0.5] != 0.0):
+        raise AssertionError("a masked slot has a non-zero weight")
+    err = 0.0
+    for i, rtol, atol, what in ((0, 2e-4, 5e-5 if k > 32 else 2e-5, "weights"),
+                                (1, 2e-3, 1e-4, "variance")):
+        np.testing.assert_allclose(got[i], want[i], rtol=rtol, atol=atol, err_msg=what)
+        err = max(err, float(np.abs(got[i].astype(np.float64) - want[i]).max()))
+    return err, int((~want[2].astype(bool)).sum())
+
+
+def phase_ok_solve(rows64, dev):
+    """The fused OK solve, both entries, at its own API (no path of the
+    system calls it): one call of each at k = 32 with the counters from 0,
+    then kernel vs plain version at k = 32 and 64."""
+    import torch
+
+    from topotpu_torch.kernels.ok_solve_fused import (
+        ok_solve_fused,
+        ok_solve_fused_ref,
+        ok_solve_fused_xyz,
+        ok_solve_fused_xyz_ref,
+    )
+
+    entries = dict(ok_solve=(ok_solve_fused, ok_solve_fused_ref, 0),
+                   ok_solve_xyz=(ok_solve_fused_xyz, ok_solve_fused_xyz_ref, 1))
+    report, launches = {}, {}
+    for k in (K, 64):
+        dp, xyz3k, dist_t, mask_t, par = _ok_inputs(rows64, k, dev)
+        if k == K:
+            ok_solve_fused.launches = ok_solve_fused_xyz.launches = 0
+            ok_solve_fused(dp, dist_t, mask_t, *par)
+            ok_solve_fused_xyz(xyz3k, dist_t, mask_t, *par)
+            torch.cuda.synchronize()
+            launches = dict(ok_solve=ok_solve_fused.launches,
+                            ok_solve_xyz=ok_solve_fused_xyz.launches)
+            if launches != dict(ok_solve=1, ok_solve_xyz=1):
+                raise RuntimeError(f"the OK-solve API did not launch its kernels: {launches}")
+        for name, (kern_fn, plain_fn, xyz) in entries.items():
+            args = ((xyz3k if xyz else dp), dist_t, mask_t, *par)
+            kern = lambda: kern_fn(*args)  # noqa: E731
+            plain = lambda: plain_fn(*args)  # noqa: E731
+            err, n_not_ok = _compare_ok(kern(), plain(), mask_t, k)
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
+            log(f"[ok_solve] {name} B={dist_t.shape[1]} k={k}: max_abs_err {err:.3e} "
+                f"(not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            if k == K:
+                report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del dp
+    return report, launches
 
 
 def _pair(ti, norm_add, anom_mul):
@@ -372,15 +483,16 @@ def phase_reconcile(world, days, dev):
         f"daily {errs['daily']:.3e} C")
 
 
-def phase_profile(step):
+def profile_breakdown(tag, what, fn):
+    """Run ``fn`` once under ``torch.profiler`` and log its wall, the device
+    kernel time (busy share = device time / wall), the port kernels' share
+    and the top kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (the aten ops that launched them would count
@@ -390,20 +502,241 @@ def phase_profile(step):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     if not events:
-        log("[profile] the profiler recorded no device time")
+        log(f"[{tag}] the profiler recorded no device time")
         return
     total = sum(dev_us(e) for e in events)
-    ours = sum(dev_us(e) for e in events
-               if "krig_normals_kernel" in e.key or "scatter_daily_kernel" in e.key)
+    ours = sum(dev_us(e) for e in events if any(f"{k}_kernel" in e.key for k in KERNELS))
     top = sorted(events, key=lambda e: -dev_us(e))[:8]
     parts = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
-    log(f"[profile] one step under the profiler: wall {wall_us / 1e3:.3f} ms, device "
+    log(f"[{tag}] {what} under the profiler: wall {wall_us / 1e3:.3f} ms, device "
         f"kernels {total / 1e3:.3f} ms ({len(events)} kinds; busy share "
-        f"{total / wall_us:.3f}), of which the two port kernels {ours / 1e3:.3f} ms; "
+        f"{total / wall_us:.3f}), of which the port kernels {ours / 1e3:.3f} ms; "
         f"top: {parts}")
 
 
+def phase_profile(step):
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    profile_breakdown("profile", "one step", step)
+
+
+def _wsse(gamma, h, npairs, nug, ps, rg):
+    """Weighted SSE of the variogram fit objective (gstat fit.method 7), float64."""
+    ok = npairs > 0
+    w = np.where(ok, npairs / np.maximum(h, 1e-3) ** 2, 0.0)
+    w = w / w.sum(-1, keepdims=True)
+    model = nug[..., None] + ps[..., None] * (1 - np.exp(-h / rg[..., None]))
+    return np.sum(np.where(ok, w * (gamma - model) ** 2, 0.0), -1)
+
+
+def _variogram_oracle(st, vario_m, month, picks, vp, ip, dev):
+    """Month ``month``'s empirical variograms of the stations ``picks``
+    against the float64 loop oracle (npairs equal, gamma and h rtol 1e-4, as
+    ``tests/test_variogram.py``). The timed krig-params run keeps only the
+    fitted parameters, so the variograms are computed again here by the
+    port's own functions from the same month's residuals over the whole
+    network, on a batch of the picked stations. A station with a pair within
+    1e-6 (relative) of a bin edge or of the cutoff, where float32 and float64
+    may bin it differently (their d / width differ by ~2e-7), is skipped.
+    Then the timed run's fits ``vario_m`` of those stations against scipy's
+    least squares on the same variograms: per fit, whether its weighted SSE
+    is within 1.1x scipy's + 1e-10. Returns the max gamma error, the skipped
+    count, the share within, the median wSSE ratio and how many fits outside
+    have their nugget at the 0 bound."""
+    import torch
+
+    from topotpu.oracle import numpy_ref
+    from topotpu_torch.interp.convert import to_tensor
+    from topotpu_torch.interp.params import station_residuals
+    from topotpu_torch.stats.variogram import empirical_variogram
+
+    f = lambda a: to_tensor(a, dev)  # noqa: E731
+    dp, resid, mask = station_residuals(
+        f(st.lon), f(st.lat), f(st.elev), f(st.tdi),
+        to_tensor(st.valid[:, month], dev, torch.bool), f(st.lst[:, month]),
+        f(st.norm[:, month]), vp.k_fit_neighbors, ip)
+    sel = torch.as_tensor(picks, device=dev)
+    dp, resid, mask = dp[sel], resid[sel], mask[sel]
+    emp = empirical_variogram(dp, resid, mask, n_bins=vp.n_bins, max_dist_frac=vp.max_dist_frac)
+    gamma, h, npairs, cutoff = (t.cpu().numpy().astype(np.float64) for t in emp)
+    dp, resid, mask = (t.cpu().numpy() for t in (dp, resid, mask))
+    n_bins, err, skipped = vp.n_bins, 0.0, 0
+    for b in range(len(picks)):
+        m = mask[b]
+        d = dp[b][np.ix_(m, m)].astype(np.float64)
+        pos = d[np.triu_indices(int(m.sum()), 1)] / (cutoff[b] / n_bins)
+        pos = pos[(pos > 0.0) & (pos <= n_bins * (1.0 + 1e-6))]
+        if np.any(np.abs(pos - np.round(pos)) < 1e-6 * np.maximum(pos, 1.0)):
+            skipped += 1
+            continue
+        wg, wh, wn = numpy_ref.empirical_variogram_loops(d, resid[b][m].astype(np.float64),
+                                                         n_bins, cutoff[b])
+        np.testing.assert_array_equal(npairs[b], wn, err_msg=f"npairs of station {picks[b]}")
+        np.testing.assert_allclose(gamma[b], wg, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(h[b], wh, rtol=1e-4, atol=1e-6)
+        err = max(err, float(np.abs(gamma[b] - wg).max()))
+    if skipped > len(picks) // 10:
+        raise RuntimeError(f"{skipped} of {len(picks)} stations sit on a bin edge")
+
+    got = _wsse(gamma, h, npairs, *(vario_m[picks, i].astype(np.float64) for i in range(3)))
+    want = np.array([
+        _wsse(gamma[b], h[b], npairs[b], *numpy_ref.fit_exp_scipy(gamma[b], h[b], npairs[b]))
+        for b in range(len(picks))
+    ])
+    within = got <= 1.1 * want + 1e-10
+    outside_at_bound = int(np.sum(~within & (vario_m[picks, 0] == 0.0)))
+    return (err, skipped, float(within.mean()), float(np.median(got / np.maximum(want, 1e-30))),
+            outside_at_bound)
+
+
+def _loo_oracle(st, vario_m, normal_m, month, picks, k):
+    """July LOO normals of the stations ``picks`` against the float64
+    pipeline oracle run with each station left out of the pool."""
+    from topotpu.oracle.pipeline import interp_cell_month
+
+    cov = np.stack([st.elev, st.tdi, st.lst[:, month]], 1)
+    errs = []
+    for s in picks:
+        keep = np.arange(len(st.lon)) != s
+        want = interp_cell_month(
+            st.lon[s], st.lat[s], cov[s], np.zeros(3), st.lon[keep], st.lat[keep],
+            cov[keep], np.zeros((keep.sum(), 3)), st.norm[keep, month],
+            vario_m[keep].astype(np.float64), k)["normal"]
+        errs.append(abs(float(normal_m[s]) - want))
+    return np.array(errs)
+
+
+def phase_stations(dev):
+    """krig-params, the x-val stages and both nnghs sweeps at the full
+    network size, through the port's public functions."""
+    import torch
+
+    from topotpu.core.config import InterpParams, VariogramParams
+    from topotpu.io.synthetic import make_world
+    from topotpu_torch.interp.params import (
+        build_krig_params,
+        fill_failed_fits,
+        krig_params_to_numpy,
+    )
+    from topotpu_torch.interp.xval import (
+        optimize_nnghs,
+        optimize_nnghs_anoms,
+        xval_interp_daily,
+        xval_interp_normals,
+    )
+    from topotpu_torch.io.synthetic import station_arrays_from_world
+    from topotpu_torch.kernels.krig_normals import krig_normals_fused
+
+    t0 = time.perf_counter()
+    ndays = int((np.datetime64(ST_END) - np.datetime64(ST_START)).astype(int)) + 1
+    world = make_world(np.random.default_rng(7), nrows=ST_SIDE, ncols=ST_SIDE,
+                       n_stations=ST_STATIONS, ndays=ndays)
+    st = station_arrays_from_world(world, start=ST_START)
+    S = len(st.lon)
+    log(f"[stations] world {ST_SIDE}x{ST_SIDE}, {S} stations, {ndays} days built on the "
+        f"host in {time.perf_counter() - t0:.3f} s")
+    picks = np.sort(np.random.default_rng(8).choice(S, ST_SAMPLE, replace=False))
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        log(f"[stations] {name} wall {walls[name]:.3f} s")
+        return out
+
+    vp = VariogramParams(k_fit_neighbors=64, n_bins=15, gn_iters=50)
+    ip = InterpParams()
+    res = timed("krig-params", lambda: krig_params_to_numpy(build_krig_params(
+        st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev)))
+    usable = float(res.ok.mean())
+    if usable <= 0.95:
+        raise RuntimeError(f"only {usable:.4f} of the fits are usable")
+    vario = fill_failed_fits(res.vario, res.ok).astype(np.float32)
+    emp_err, skipped, fit_share, fit_median, at_bound = _variogram_oracle(
+        st, res.vario[:, 6], 6, picks, vp, ip, dev)
+    log(f"[stations] krig-params S={S} k_fit=64: usable fits {usable:.4f}; July empirical "
+        f"variograms of {ST_SAMPLE - skipped} stations vs the float64 loop oracle: max gamma "
+        f"err {emp_err:.3e} ({skipped} skipped at a bin edge); fits within 1.1x scipy's wSSE: "
+        f"{fit_share:.4f} of {ST_SAMPLE} (median ratio {fit_median:.4f}; of the fits outside, "
+        f"{at_bound} have nugget 0)")
+    # the Gauss-Newton step is clamped onto the box after it is solved, so
+    # where the best nugget is 0 it stalls short of scipy's bounded optimum,
+    # in the JAX package as in the port (tests/test_torch_variogram.py). The
+    # per-fit bar therefore holds on a share: 0.902 on this world on an
+    # H100 in two runs, held to 0.85
+    if fit_share < 0.85 or fit_median > 1.1:
+        raise RuntimeError(f"variogram fits: {fit_share:.4f} within 1.1x scipy's wSSE, "
+                           f"median ratio {fit_median:.4f}")
+    st = st._replace(vario=vario)
+
+    counts = {}
+
+    def counted(name, runs, fn):
+        krig_normals_fused.launches = 0
+        out = timed(name, fn)
+        counts[name] = krig_normals_fused.launches
+        if counts[name] != 12 * runs:
+            raise RuntimeError(f"{name}: {counts[name]} krig_normals launches, "
+                               f"expected {12 * runs}")
+        return out
+
+    p32 = InterpParams(k_neighbors=K)
+    sc = counted("xval-normals", 1, lambda: xval_interp_normals(*st.krig(), p32, dev))
+    mae, bias, r2 = float(sc.mae.mean()), float(sc.bias.mean()), float(sc.r2.mean())
+    if not (mae < 0.6 and abs(bias) < 0.1 and r2 > 0.9):
+        raise RuntimeError(f"x-val normals: MAE {mae:.4f} bias {bias:.4f} R2 {r2:.4f}")
+    normal7 = sc.per_station_err[:, 6] + st.norm[:, 6].astype(np.float32)
+    scored = picks[np.isfinite(normal7[picks])]
+    t = time.perf_counter()
+    loo_err = _loo_oracle(st, vario[:, 6], normal7, 6, scored, K)
+    if len(scored) < 0.95 * ST_SAMPLE or loo_err.max() > 2e-2:
+        raise RuntimeError(f"LOO normals vs oracle: {len(scored)} scored, max err "
+                           f"{loo_err.max():.3e} C")
+    log(f"[stations] xval-normals k={K}: MAE {mae:.4f} C, bias {bias:.4f} C, R2 {r2:.4f}; "
+        f"July LOO normals of {len(scored)} stations vs the float64 oracle: max err "
+        f"{loo_err.max():.3e} C ({time.perf_counter() - t:.1f} s)")
+
+    regions = (st.lon > np.median(st.lon)).astype(int)
+    cands = (8, 16, 24, 32, 48)
+    nn = counted("optim-nnghs", len(cands), lambda: optimize_nnghs(
+        *st.krig(), candidates=cands, region_labels=regions, device=dev))
+    if set(nn["best"]) != {0, 1} or not all(k in cands for k in nn["best"].values()):
+        raise RuntimeError(f"optimize_nnghs picked {nn['best']}")
+    log(f"[stations] optim-nnghs over {cands}: best {nn['best']}; mean MAE by k "
+        + " ".join(f"{k}:{float(np.mean(v)):.4f}" for k, v in nn["mae"].items()))
+
+    daily = counted("xval-daily", 1, lambda: xval_interp_daily(
+        *st.krig(), st.anoms, st.month_idx, p32, dev))
+    if not (daily["mae"] < 2.0 and abs(daily["bias"]) < 0.15):
+        raise RuntimeError(f"daily x-val: MAE {daily['mae']:.4f} bias {daily['bias']:.4f}")
+    acands = (8, 16, 24, 32)
+    na = counted("optim-nnghs-anoms", len(acands), lambda: optimize_nnghs_anoms(
+        *st.krig(), st.anoms, st.month_idx, candidates=acands, region_labels=regions,
+        device=dev))
+    if set(na["best"]) != {0, 1} or not all(v < 2.0 for v in na["mae"].values()):
+        raise RuntimeError(f"optimize_nnghs_anoms: best {na['best']} MAE {na['mae']}")
+    log(f"[stations] xval-daily k={K} ka={min(p32.k_neighbors_anom, K)} over {ndays} days: "
+        f"MAE {daily['mae']:.4f} C, bias {daily['bias']:.4f} C, RMSE {daily['rmse']:.4f} C; "
+        f"optim-nnghs-anoms over {acands}: best {na['best']}; MAE by ka "
+        + " ".join(f"{k}:{v:.4f}" for k, v in na["mae"].items()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[stations] krig_normals launches {counts}; walls "
+        + " ".join(f"{n} {w:.3f} s" for n, w in walls.items())
+        + f"; peak device memory {peak:.3f} GiB")
+    profile_breakdown("stations", "krig-params", lambda: build_krig_params(
+        st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev))
+    profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
+        *st.krig(), st.anoms, st.month_idx, p32, dev))
+    return sum(counts.values())
+
+
 def main():
+    t_start = time.perf_counter()
     dev, name = phase_environment()
     from topotpu.core.dates import get_days_metadata
     from topotpu.io.synthetic import make_world
@@ -412,10 +745,17 @@ def main():
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
     days = get_days_metadata("2015-01-01", "2015-12-31")
-    report = phase_kernels(world, dev)
+    rows64 = neighbour_planes(world)
+    report = phase_kernels(rows64, dev)
+    ok_report, ok_launches = phase_ok_solve(rows64, dev)
+    del rows64
     launches, step = phase_slice(world, days, dev)
     phase_reconcile(world, days, dev)
     phase_profile(step)
+    del step
+    launches["krig_normals"] += phase_stations(dev)
+    launches.update(ok_launches)
+    report.update(ok_report)
 
     import torch
 
@@ -424,12 +764,17 @@ def main():
                       "topotpu/kernels/pallas_krig.py:445"),
         scatter_daily=("topotpu_torch/kernels/csrc/scatter_daily.cu",
                        "topotpu/kernels/pallas_scatter.py:67"),
+        ok_solve=("topotpu_torch/kernels/csrc/ok_solve.cu",
+                  "topotpu/kernels/pallas_krig.py:584"),
+        ok_solve_xyz=("topotpu_torch/kernels/csrc/ok_solve.cu",
+                      "topotpu/kernels/pallas_krig.py:608"),
     )
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],
              **report[k])
         for k, (src, rep) in sources.items()
     ]
+    log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

@@ -20,11 +20,16 @@ MODULES = [
     "topotpu_torch.kernels.cholesky",
     "topotpu_torch.kernels.krig_normals",
     "topotpu_torch.kernels.scatter_daily",
+    "topotpu_torch.kernels.ok_solve_fused",
+    "topotpu_torch.stats",
+    "topotpu_torch.stats.variogram",
     "topotpu_torch.interp",
     "topotpu_torch.interp.anoms",
     "topotpu_torch.interp.normals",
     "topotpu_torch.interp.point",
     "topotpu_torch.interp.convert",
+    "topotpu_torch.interp.params",
+    "topotpu_torch.interp.xval",
     "topotpu_torch.io",
     "topotpu_torch.io.synthetic",
 ]
@@ -35,7 +40,12 @@ for name in {MODULES!r}:
     importlib.import_module(name)
 from topotpu_torch.kernels.krig_normals import krig_normals_fused
 from topotpu_torch.kernels.scatter_daily import scatter_daily
+from topotpu_torch.kernels.ok_solve_fused import ok_solve_fused, ok_solve_fused_xyz
 assert krig_normals_fused.launches == 0 and scatter_daily.launches == 0
+assert ok_solve_fused.launches == 0 and ok_solve_fused_xyz.launches == 0
+# no submodule shadows the package's re-export of the plain OK solve
+import topotpu_torch.kernels as kernels
+assert kernels.ok_solve is kernels.cholesky.ok_solve
 bad = sorted(m for m in ("jax", "jaxlib", "h5py", "triton") if m in sys.modules)
 print("LOADED", bad)
 """

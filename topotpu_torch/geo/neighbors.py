@@ -57,8 +57,13 @@ def select_neighbors(
     matmul on the unit-sphere embedding, exact distances recomputed for the
     chosen k) when neither ``dist_matrix`` nor ``exclude_self_km`` is given,
     else the exact-distance branch. ``exclude_idx`` (ncells,) leaves one
-    station out of each query's neighbourhood by index; ``exclude_self_km``
-    leaves out stations within that distance (exact branch only).
+    station out of each query's neighbourhood by index: the leave-one-out
+    rule of the x-val stages and krig-params, where the queries are the
+    pool. It removes that station only, the reference's remove-by-station
+    rule: another station at identical coordinates (a twin) stays and enters
+    the neighbourhood at distance 0, as in the JAX package.
+    ``exclude_self_km`` leaves out stations within that distance (exact
+    branch only), twins included.
     """
     S = stn_lon.shape[0]
     if cos_matrix is not None and exclude_self_km > 0.0:

@@ -1,4 +1,6 @@
-"""The tile interpolation step on torch tensors."""
+"""The tile interpolation step and the station-side kriging stages
+(variogram parameters, cross-validation, nnghs optimisation) on torch
+tensors."""
 
 from topotpu_torch.interp.normals import (  # noqa: F401
     NormalsResult,
@@ -21,4 +23,17 @@ from topotpu_torch.interp.point import (  # noqa: F401
     interp_tile_pair_flat,
     month_layout,
     ungroup_days,
+)
+from topotpu_torch.interp.params import (  # noqa: F401
+    KrigParamsResult,
+    build_krig_params,
+    fill_failed_fits,
+    krig_params_to_numpy,
+)
+from topotpu_torch.interp.xval import (  # noqa: F401
+    XvalScores,
+    optimize_nnghs,
+    optimize_nnghs_anoms,
+    xval_interp_daily,
+    xval_interp_normals,
 )

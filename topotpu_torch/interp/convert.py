@@ -1,11 +1,12 @@
-"""Carry the JAX package's per-tile state into the port's tensors.
+"""Carry the JAX package's state into the port's tensors.
 
-The inputs are ``topotpu.interp.point`` TileInputs / PairTileInputs whose
-fields are numpy arrays (``np.asarray`` of each JAX field), or any
+The tile inputs are ``topotpu.interp.point`` TileInputs / PairTileInputs
+whose fields are numpy arrays (``np.asarray`` of each JAX field), or any
 NamedTuple with the same field names. Float fields become ``dtype`` tensors
 (float32 by default), the masks bool tensors, all on ``device``. Station
 variogram parameters and the other tile inputs are this system's weights;
-``InterpParams`` is shared unchanged.
+``InterpParams`` is shared unchanged. The station-side stages take their
+numpy station arrays through ``to_tensor`` too.
 """
 
 from __future__ import annotations
@@ -18,16 +19,20 @@ from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.interp.point import PairTileInputs, TileInputs, VarFields
 
 
-def _tensor(a, device, dtype):
+def to_tensor(a, device, dtype: torch.dtype = COMPUTE_DTYPE) -> torch.Tensor:
+    """An array (numpy, cast on the host, or a tensor) as ``dtype`` on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
     # np.array copies: arrays handed over from JAX are read-only
-    return torch.as_tensor(np.array(a), device=device).to(dtype)
+    return torch.as_tensor(np.array(a)).to(dtype).to(device)
 
 
 def tile_inputs_from_numpy(ti, device, dtype: torch.dtype = COMPUTE_DTYPE) -> TileInputs:
     """A TileInputs of numpy arrays -> the port's TileInputs on ``device``."""
     return TileInputs(
         **{
-            name: _tensor(getattr(ti, name), device,
+            name: to_tensor(getattr(ti, name), device,
                           torch.bool if name in ("cell_mask", "stn_valid") else dtype)
             for name in TileInputs._fields
         }
@@ -39,7 +44,7 @@ def pair_inputs_from_numpy(pair, device, dtype: torch.dtype = COMPUTE_DTYPE) -> 
     return PairTileInputs(
         geom=tile_inputs_from_numpy(pair.geom, device, dtype),
         b=VarFields(
-            **{name: _tensor(getattr(pair.b, name), device, dtype)
+            **{name: to_tensor(getattr(pair.b, name), device, dtype)
                for name in VarFields._fields}
         ),
     )

@@ -1,14 +1,19 @@
-"""Tile inputs from a synthetic world, on an explicit device.
+"""Tile inputs and station arrays from a synthetic world.
 
 The world itself comes from ``topotpu.io.synthetic.make_world`` (numpy only);
-this is the torch counterpart of its ``tile_inputs_from_world``.
+``tile_inputs_from_world`` is the torch counterpart of its namesake there, and
+``station_arrays_from_world`` gives the numpy station arrays that the
+station-side stages of both packages take.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from topotpu.core.dates import get_days_metadata
 from topotpu.io.synthetic import SyntheticWorld
 from topotpu.oracle.numpy_ref import haversine_km
 from topotpu_torch.core.device import COMPUTE_DTYPE
@@ -121,3 +126,40 @@ def tile_inputs_from_world(
         stn_anoms=t(np.moveaxis(anoms, 1, 0)),
     )
     return ti, layout
+
+
+class StationArrays(NamedTuple):
+    """A station network as the station-side stages take it (numpy)."""
+
+    lon: np.ndarray        # (S,)
+    lat: np.ndarray        # (S,)
+    elev: np.ndarray       # (S,)
+    tdi: np.ndarray        # (S,)
+    lst: np.ndarray        # (S, 12)
+    norm: np.ndarray       # (S, 12) monthly normals
+    vario: np.ndarray      # (S, 12, 3) float32 nugget/psill/range
+    valid: np.ndarray      # (S, 12) bool
+    anoms: np.ndarray      # (S, T) float32 daily anomalies
+    month_idx: np.ndarray  # (T,) month of each day, 0-11
+
+    def krig(self) -> tuple:
+        """The eight leading arguments of the x-val and nnghs stages: lon,
+        lat, elev, tdi, lst, norm, vario, valid."""
+        return tuple(self[:8])
+
+
+def station_arrays_from_world(world: SyntheticWorld, start: str = "2015-01-01") -> StationArrays:
+    """The station arrays of ``world``, its days starting on ``start``.
+    Variogram parameters are the world's true ones; every station is valid
+    in every month."""
+    S = world.n_stations
+    d0 = np.datetime64(start, "D")
+    days = get_days_metadata(d0, d0 + np.timedelta64(world.ndays - 1, "D"))
+    return StationArrays(
+        lon=world.stn_lon, lat=world.stn_lat, elev=world.stn_elev, tdi=world.stn_tdi,
+        lst=world.stn_lst, norm=world.stn_norm,
+        vario=np.tile(np.asarray(world.true_vario, np.float32), (S, 12, 1)),
+        valid=np.ones((S, 12), bool),
+        anoms=world.stn_anoms.astype(np.float32),
+        month_idx=days.month_idx,
+    )

@@ -1,8 +1,8 @@
-"""Batched solves (plain torch) and the two hand-written CUDA kernels of the
-tile step, each beside its plain version in its own module
-(``kernels.krig_normals``, ``kernels.scatter_daily``). Importing this package
-builds and loads nothing: a kernel is compiled at its first launch (see
-``_build``)."""
+"""Batched solves (plain torch) and the hand-written CUDA kernels, each beside
+its plain version in its own module (``kernels.krig_normals`` and
+``kernels.scatter_daily`` of the tile step; ``kernels.ok_solve_fused``, the
+fused OK solve at its own API). Importing this package builds and loads
+nothing: a kernel is compiled at its first launch (see ``_build``)."""
 
 from topotpu_torch.kernels.cholesky import (  # noqa: F401
     OKSolution,

@@ -7,8 +7,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``topotpu_torch/kernels/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused. The build runs at
+``.gitignore``) under a name keyed by a hash of the source, every shared
+header ``csrc/*.cuh`` and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. The build runs at
 the first launch, never at import; the compiler's report (registers, shared
 memory, spills from ``-Xptxas -v``) is kept beside the library as
 ``<lib>.log``. No fast-math flag: the kernels hold exact fp32 division,
@@ -49,9 +50,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of ``csrc/<name>.cu`` is built, keyed by content."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` is built, keyed by its content,
+    the content of every header in ``csrc`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

@@ -23,6 +23,10 @@
 // k <= 32, 2 at k = 64). Exact fp32 throughout: no tensor cores, no TF32, no
 // fast-math intrinsics.
 //
+// The covariance assembly, the factorisation with its two solves and the
+// masked OK sums are the shared core in krig_core.cuh, which ok_solve.cu
+// calls too.
+//
 // C interface: krig_normals_launch(...) launches on the given stream and
 // returns cudaGetLastError(). Inputs are (rows, B) row-major float32, with the
 // cell index contiguous: xyz3k (3k), dist (k), mask (k, 0/1), covs (q k),
@@ -32,32 +36,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "krig_core.cuh"
+
 namespace {
 
+using krig::warp_max;
+using krig::warp_sum;
+
 constexpr int MAXP = 8;  // largest (covariates + intercept) of a WLS design
-constexpr float EARTH_RADIUS_KM = 6371.0087714f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// Slot j's register value, broadcast from the lane that owns it (j uniform).
-template <int R>
-__device__ __forceinline__ float bcast(const float (&v)[R], int j) {
-  float lo = __shfl_sync(FULL, v[0], j & 31);
-  if (R == 1) return lo;
-  float hi = __shfl_sync(FULL, v[R - 1], j & 31);
-  return j < 32 ? lo : hi;
-}
 
 // In-place Cholesky solve of a p x p SPD system held in shared memory (lower
 // triangle of A, row stride MAXP); b is overwritten with x. One thread.
@@ -260,23 +246,9 @@ __global__ void __launch_bounds__(256) krig_normals_kernel(
   }
   __syncwarp();
   const float diag_add = nug + jitter_frac * sill;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    if (i < k) {
-      const float xi = sx[i], yi = sy[i], zi = sz[i], mi = m[r];
-      float* row = sC + i * LD;
-      for (int j = 0; j <= i; ++j) {
-        const float dx = xi - sx[j], dy = yi - sy[j], dz = zi - sz[j];
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        const float half = fminf(fmaxf(0.5f * sqrtf(d2), 0.0f), 1.0f);
-        const float dp = 2.0f * EARTH_RADIUS_KM * asinf(half);
-        float cv = ps * expf(-dp / rg) * (mi * sm[j]);
-        if (j == i) cv += mi * diag_add + (1.0f - mi);
-        row[j] = cv;
-      }
-    }
-  }
+  krig::assemble_exp_cov<R>(
+      sC, LD, k, lane, m, sm, ps, rg, diag_add,
+      [&](int i, int j) { return krig::chord_km(sx, sy, sz, i, j); });
   float c0[R], y0[R], y1[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -287,80 +259,11 @@ __global__ void __launch_bounds__(256) krig_normals_kernel(
   __syncwarp();
 
   // ---- 8. right-looking Cholesky, then forward and back substitution ----
-  for (int j = 0; j < k; ++j) {
-    const float dj = sqrtf(fmaxf(sC[j * LD + j], 1e-20f));
-    const float inv = 1.0f / dj;
-    __syncwarp();  // every lane has read C[j][j] before its owner rewrites it
-    float lij[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      lij[r] = 0.0f;
-      if (i == j) sC[j * LD + j] = dj;
-      if (i > j && i < k) {
-        lij[r] = sC[i * LD + j] * inv;
-        sC[i * LD + j] = lij[r];
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i > j && i < k) {
-        float* row = sC + i * LD;
-        for (int cc = j + 1; cc <= i; ++cc) row[cc] -= lij[r] * sC[cc * LD + j];
-      }
-    }
-    __syncwarp();
-  }
-  for (int j = 0; j < k; ++j) {  // L y = rhs
-    const float inv = 1.0f / sC[j * LD + j];
-    const float a = bcast<R>(y0, j) * inv;
-    const float u = bcast<R>(y1, j) * inv;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i == j) {
-        y0[r] = a;
-        y1[r] = u;
-      } else if (i > j && i < k) {
-        const float l = sC[i * LD + j];
-        y0[r] -= l * a;
-        y1[r] -= l * u;
-      }
-    }
-  }
-  for (int j = k - 1; j >= 0; --j) {  // L^T x = y
-    const float inv = 1.0f / sC[j * LD + j];
-    const float a = bcast<R>(y0, j) * inv;
-    const float u = bcast<R>(y1, j) * inv;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i == j) {
-        y0[r] = a;
-        y1[r] = u;
-      } else if (i < j) {
-        const float l = sC[j * LD + i];
-        y0[r] -= l * a;
-        y1[r] -= l * u;
-      }
-    }
-  }
+  krig::chol_two_solves<R>(sC, LD, k, lane, y0, y1);
 
   // ---- 9-10. SK -> OK reduction and the kriged normal -------------------
-  float sa = 0.0f, su = 0.0f, nv = 0.0f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    y0[r] *= m[r];
-    y1[r] *= m[r];
-    sa += y0[r];
-    su += y1[r];
-    nv += m[r];
-  }
-  sa = warp_sum(sa);
-  su = warp_sum(su);
-  nv = warp_sum(nv);
+  float sa, su, nv;
+  krig::masked_sums<R>(y0, y1, m, sa, su, nv);
   const bool ok = nv >= (float)min_neighbors && su > 1e-12f && isfinite(su);
   const float t = (1.0f - sa) / (ok ? su : 1.0f);
   float lc = 0.0f, lr = 0.0f;
