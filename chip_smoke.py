@@ -38,7 +38,25 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    anomaly sweep over (8, 16, 24, 32). The ``krig_normals`` launch counter
    must rise by 12 per x-val run. Each stage's wall time and the peak device
    memory are printed.
-8. the card's name and power limit, one JSON line of kernels (each launch
+8. the PPCA infill at BASELINE config #3's settings
+   (``configs/config3_infill.json``: 12 components, 24 predictors, 200
+   iterations, batches of 32) over the station phase's world, 10,000
+   stations and 1,461 days (config #3's 1986-2015 span, 10,957 days, took
+   the phase 224 s on an H100 80GB HBM3 at 700 W, over its 120 s budget):
+   the CLI's 15 % random gaps, then ``xval_infill``'s
+   20 % hold-out, then the post-infill
+   changepoint flags. Printed: the walls of ``select_predictors``, the EM
+   batch loop, ``changepoint_flags`` and ``xval_infill``, the EM iteration
+   statistics, peak device memory and a profiler breakdown of two EM
+   batches. It fails unless the device branch of ``select_predictors`` ran,
+   the held-out MAE is under 0.6 x the station-month climatology's, |bias|
+   < 0.1 C, the filled series' monthly normals are within 0.15 C MAE of the
+   truth, every kept observation comes back unchanged and every value is
+   finite, the predictor sets of 256 sampled stations agree with a float64
+   recompute away from ties, and ``ppca_impute`` on two batches agrees
+   between the card and the CPU (``filled`` within 5e-2 C, 5e-3 C on 99.9 %
+   of entries; iteration counts within one).
+9. the card's name and power limit, one JSON line of kernels (each launch
    count is the sum over the main-path runs, each counted from 0) and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +65,7 @@ configuration, dates, synthetic world and oracle, are numpy only).
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +84,11 @@ ST_SIDE = 1024
 ST_STATIONS = 10000
 ST_START, ST_END = "2015-01-01", "2018-12-31"  # one 4-year chunk, 1,461 days
 ST_SAMPLE = 256       # stations held against the float64 oracles
+# infill slice: BASELINE config #3 over the station phase's network
+IN_CONFIG = "configs/config3_infill.json"
+IN_GAPS = 0.15        # the CLI's synthetic random gaps (cli/steps.py step_synth_data)
+IN_HOLDOUT = 0.2      # xval_infill's hold-out
+IN_TIE_MARGIN = 1e-4  # predictor score units (|corr| + 1); float32 grams part by ~1e-6
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")
 
 
@@ -78,6 +102,8 @@ def phase_environment():
     from topotpu_torch.core.device import cuda_device
 
     dev = cuda_device()  # raises without a CUDA device
+    if shutil.which("g++") is None:  # the post-infill flags build topotpu.homog's C++ core
+        raise RuntimeError("no g++ on the PATH")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -732,7 +758,201 @@ def phase_stations(dev):
         st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev))
     profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
         *st.krig(), st.anoms, st.month_idx, p32, dev))
-    return sum(counts.values())
+    return sum(counts.values()), world
+
+
+class _StageWalls:
+    """Within a ``with`` block, time every call of the named functions of
+    ``module`` (each ending in a device synchronise) and add the seconds to
+    ``walls[name]``; the functions are restored on exit."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.walls = module, names, dict.fromkeys(names, 0.0)
+
+    def _timed(self, name, fn):
+        import torch
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.walls[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.module, n, self._timed(n, fn))
+        return self.walls
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def _scores64(obs_in, rows, lon, lat):
+    """Rows ``rows`` of the predictor score of ``select_predictors`` on the
+    network ``obs_in`` (NaN = missing), recomputed in float64 on the host
+    from the same standardised float32 series: |corr| + 1 over >= 30 jointly
+    observed days, else the proximity tiebreak; -1 on the diagonal."""
+    from topotpu.oracle.numpy_ref import haversine_km
+
+    mask = np.isfinite(obs_in)
+    mu = np.nanmean(np.where(mask, obs_in, np.nan), axis=1)
+    sd = np.nanstd(np.where(mask, obs_in, np.nan), axis=1) + 1e-6
+    xs = np.where(mask, (obs_in - mu[:, None]) / sd[:, None], 0.0).astype(np.float32)
+    x, m = xs.astype(np.float64), mask.astype(np.float64)
+    del xs
+    xr, mr = x[rows], m[rows]
+    n = mr @ m.T
+    sx, sy = xr @ m.T, mr @ x.T
+    sxy = xr @ x.T
+    sxx, syy = (xr * xr) @ m.T, mr @ (x * x).T
+    sn = np.maximum(n, 1.0)
+    cov = sxy / sn - (sx / sn) * (sy / sn)
+    vx = np.maximum(sxx / sn - (sx / sn) ** 2, 1e-12)
+    vy = np.maximum(syy / sn - (sy / sn) ** 2, 1e-12)
+    score = np.abs(np.where(n < 30, 0.0, cov / np.sqrt(vx * vy)))
+    prox = 1e-4 / (1.0 + haversine_km(lon[rows, None], lat[rows, None], lon[None], lat[None]))
+    score = np.where(score > 0, score + 1.0, prox)
+    score[np.arange(len(rows)), rows] = -1.0
+    return score
+
+
+def phase_infill(world, dev):
+    """BASELINE config #3's PPCA settings (``configs/config3_infill.json``:
+    12 components, 24 predictors, 200 iterations) over the station phase's
+    ``world`` (the reference's whole network, one 4-year chunk: config #3's
+    1986-2015 span took the phase over 120 s), through ``xval_infill``: the
+    CLI's 15 % random gaps, then the x-val's 20 % hold-out."""
+    import pathlib
+
+    import torch
+
+    from topotpu.core.config import TopoConfig
+    from topotpu.core.dates import get_days_metadata
+    from topotpu_torch.infill import pipeline
+    from topotpu_torch.infill.post_infill import changepoint_flags
+    from topotpu_torch.interp.convert import to_tensor
+    from topotpu_torch.interp.xval import xval_infill
+    from topotpu_torch.io.synthetic import station_network_from_world
+    from topotpu_torch.stats.ppca import ppca_impute
+
+    t_phase = time.perf_counter()
+    params = TopoConfig.load(pathlib.Path(__file__).resolve().parent / IN_CONFIG).ppca
+    days = get_days_metadata(ST_START, ST_END)
+    truth, obs = station_network_from_world(world, days.month_idx, IN_GAPS, seed=9)
+    S, T = obs.shape
+    log(f"[infill] {IN_CONFIG}'s {params} on {S} stations x {T} days ({ST_START} to "
+        f"{ST_END}); gaps drawn on the host in {time.perf_counter() - t_phase:.3f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    pipeline._device_select_predictors.calls = 0
+    with _StageWalls(pipeline, ("select_predictors", "_infill_batch")) as walls:
+        t = time.perf_counter()
+        out = xval_infill(obs, days.month_idx, params, holdout_frac=IN_HOLDOUT, seed=0,
+                          stn_lon=world.stn_lon, stn_lat=world.stn_lat, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    calls = pipeline._device_select_predictors.calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if calls != 1:
+        raise RuntimeError(f"the device branch of select_predictors ran {calls} times")
+    res = out["result"]
+
+    t = time.perf_counter()
+    flags = changepoint_flags(res.filled, res.obs_mask, days.year, days.month)
+    cp_wall = time.perf_counter() - t
+    it = res.n_iters
+    log(f"[infill] walls: select_predictors {walls['select_predictors']:.3f} s, EM batch loop "
+        f"{walls['_infill_batch']:.3f} s ({-(-S // params.batch_size)} batches of "
+        f"{params.batch_size}), changepoint_flags {cp_wall:.3f} s, xval_infill {wall:.3f} s; "
+        f"device branch of select_predictors ran {calls}x; EM iterations mean "
+        f"{it.mean():.2f} p95 {np.percentile(it, 95):.0f} max {it.max()}, converged "
+        f"(< {params.max_iters}) {np.mean(it < params.max_iters):.4f}; changepoint flags "
+        f"{int(flags.sum())}; peak device memory {peak:.3f} GiB")
+
+    # accuracy, as tests/test_ppca_infill.py and tests/test_xval.py hold it
+    hold = np.isfinite(obs) & (np.random.default_rng(0).uniform(size=obs.shape) < IN_HOLDOUT)
+    seen = np.where(hold, np.nan, obs)
+    if hold.sum() != out["n_holdout"]:
+        raise RuntimeError(f"hold-out of {out['n_holdout']} entries, expected {hold.sum()}")
+    kept = np.isfinite(seen)
+    if not np.isfinite(res.filled).all() or not np.array_equal(res.filled[kept], obs[kept]):
+        raise RuntimeError("a value is not finite or an observed entry changed")
+    clim = np.empty_like(truth)
+    for mth in range(12):
+        sel = days.month_idx == mth
+        clim[:, sel] = np.nanmean(seen[:, sel], axis=1)[:, None]
+    mae_clim = float(np.abs(clim - obs)[hold].mean())
+    true_norm = np.stack([truth[:, days.month_idx == m].mean(axis=1) for m in range(12)], 1)
+    norm_mae = float(np.abs(res.norms - true_norm).mean())
+    log(f"[infill] held-out {out['n_holdout']} entries: MAE {out['mae']:.4f} C (climatology "
+        f"{mae_clim:.4f} C, ratio {out['mae'] / mae_clim:.4f}), bias {out['bias']:.4f} C, RMSE "
+        f"{out['rmse']:.4f} C; monthly normals MAE vs truth {norm_mae:.4f} C; bad stations "
+        f"{int(res.bad.sum())}")
+    if not (out["mae"] < 0.6 * mae_clim and abs(out["bias"]) < 0.1 and norm_mae < 0.15):
+        raise RuntimeError("infill accuracy bars not met")
+
+    # predictor sets of sampled stations against a float64 recompute
+    t = time.perf_counter()
+    rows = np.sort(np.random.default_rng(8).choice(S, ST_SAMPLE, replace=False))
+    score = _scores64(seen, rows, world.stn_lon, world.stn_lat)
+    n = res.predictors.shape[1]
+    n_diff, worst = 0, 0.0
+    for i, s in enumerate(rows):
+        diff = set(res.predictors[s]) ^ set(np.argsort(-score[i], kind="stable")[:n])
+        if diff:
+            n_diff += 1
+            edge = np.sort(score[i])[::-1][n - 1]
+            worst = max(worst, max(abs(score[i, j] - edge) for j in diff))
+    log(f"[infill] predictors of {ST_SAMPLE} stations vs the float64 scores: {n_diff} sets "
+        f"differ, every difference within {worst:.3e} of the boundary score (tie margin "
+        f"{IN_TIE_MARGIN:.0e}; {time.perf_counter() - t:.1f} s)")
+    if worst >= IN_TIE_MARGIN:
+        raise RuntimeError("predictor sets differ from the float64 ranking away from ties")
+
+    # the first two batches of the schedule: card vs CPU, and one batch of 64
+    # vs two of 32 on the card
+    mask = np.isfinite(seen)
+    tgt = np.argsort(mask.sum(axis=1), kind="stable")[: 2 * params.batch_size]
+    cols = np.concatenate([tgt[:, None], res.predictors[tgt]], axis=1)
+    Y = np.ascontiguousarray(np.where(mask, seen, 0.0).astype(np.float32)[cols].transpose(0, 2, 1))
+    M = np.ascontiguousarray(mask[cols].transpose(0, 2, 1))
+    n_comp = min(params.n_components, cols.shape[1] - 1)
+    kw = dict(n_components=n_comp, max_iters=params.max_iters, tol=params.tol)
+    Yd, Md = torch.from_numpy(Y).to(dev), torch.from_numpy(M).to(dev)
+    bs = params.batch_size
+    halves = [slice(0, bs), slice(bs, 2 * bs)]
+    card = [ppca_impute(Yd[h], Md[h], **kw) for h in halves]
+    card = [torch.cat([getattr(r, f) for r in card]).cpu().numpy() for f in ("filled", "n_iters")]
+    one = ppca_impute(Yd, Md, **kw)
+    b_diff = float(np.abs(one.filled.cpu().numpy() - card[0]).max())
+    b_iters = int((one.n_iters.cpu().numpy() != card[1]).sum())
+    t = time.perf_counter()
+    cpu = ppca_impute(torch.from_numpy(Y), torch.from_numpy(M), **kw)
+    cpu_s = time.perf_counter() - t
+    d = np.abs(card[0] - cpu.filled.numpy())
+    d_it = np.abs(card[1].astype(int) - cpu.n_iters.numpy())
+    log(f"[infill] two batches ({len(tgt)} targets) card vs CPU: filled max |diff| "
+        f"{d.max():.3e} C, 99.9th pct {np.quantile(d, 0.999):.3e} C (tolerance 5e-2 / "
+        f"5e-3 C); n_iters differ at {int((d_it > 0).sum())} targets, max by {d_it.max()} "
+        f"(CPU run {cpu_s:.1f} s); on the card one batch of {2 * bs} vs two of {bs}: filled max "
+        f"|diff| {b_diff:.3e} C, n_iters differ at {b_iters} ("
+        f"{'bit for bit' if b_diff == 0 and b_iters == 0 else 'not bit for bit'})")
+    if d.max() > 5e-2 or np.quantile(d, 0.999) > 5e-3 or d_it.max() > 1:
+        raise RuntimeError("ppca_impute on the card and on the CPU disagree")
+
+    obs_dev = to_tensor(np.where(mask, seen, 0.0), dev)
+    mask_dev = to_tensor(mask, dev, torch.bool)
+    midx_dev = to_tensor(days.month_idx, dev, torch.int64)
+    cols_dev = torch.from_numpy(cols).to(dev)
+    profile_breakdown("infill", "the EM batch loop over two batches", lambda: [
+        pipeline._infill_batch(obs_dev, mask_dev, cols_dev[h], midx_dev, n_comp,
+                               params.max_iters, params.tol)
+        for h in halves])
+    log(f"[infill] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -753,7 +973,10 @@ def main():
     phase_reconcile(world, days, dev)
     phase_profile(step)
     del step
-    launches["krig_normals"] += phase_stations(dev)
+    st_launches, st_world = phase_stations(dev)
+    launches["krig_normals"] += st_launches
+    phase_infill(st_world, dev)
+    del st_world
     launches.update(ok_launches)
     report.update(ok_report)
 

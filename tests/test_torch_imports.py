@@ -23,6 +23,10 @@ MODULES = [
     "topotpu_torch.kernels.ok_solve_fused",
     "topotpu_torch.stats",
     "topotpu_torch.stats.variogram",
+    "topotpu_torch.stats.ppca",
+    "topotpu_torch.infill",
+    "topotpu_torch.infill.pipeline",
+    "topotpu_torch.infill.post_infill",
     "topotpu_torch.interp",
     "topotpu_torch.interp.anoms",
     "topotpu_torch.interp.normals",
@@ -46,6 +50,14 @@ assert ok_solve_fused.launches == 0 and ok_solve_fused_xyz.launches == 0
 # no submodule shadows the package's re-export of the plain OK solve
 import topotpu_torch.kernels as kernels
 assert kernels.ok_solve is kernels.cholesky.ok_solve
+# the post-infill flags build and call the C++ SNHT core of topotpu.homog
+import numpy as np
+from topotpu.core.dates import get_days_metadata
+from topotpu_torch.infill.post_infill import changepoint_flags
+days = get_days_metadata("2013-01-01", "2015-12-31")
+filled = np.random.default_rng(0).normal(size=(2, days.ndays)).astype(np.float32)
+flags = changepoint_flags(filled, np.ones_like(filled, bool), days.year, days.month)
+assert flags.shape == (2,) and not flags.any()
 bad = sorted(m for m in ("jax", "jaxlib", "h5py", "triton") if m in sys.modules)
 print("LOADED", bad)
 """

@@ -1,6 +1,6 @@
 """The tile interpolation step and the station-side kriging stages
 (variogram parameters, cross-validation, nnghs optimisation) on torch
-tensors."""
+tensors, and the infill cross-validation."""
 
 from topotpu_torch.interp.normals import (  # noqa: F401
     NormalsResult,
@@ -34,6 +34,7 @@ from topotpu_torch.interp.xval import (  # noqa: F401
     XvalScores,
     optimize_nnghs,
     optimize_nnghs_anoms,
+    xval_infill,
     xval_interp_daily,
     xval_interp_normals,
 )

@@ -1,12 +1,14 @@
 """Cross-validation and the neighbourhood-size optimisation (port of
-``topotpu.interp.xval``; ``xval_infill`` waits for the PPCA port).
+``topotpu.interp.xval``).
 
 * ``xval_interp_normals``: leave each station out, krige its monthly normals
   from the others, score MAE, bias and R^2 per month;
 * ``xval_interp_daily``: the same for daily values (normals + GWR anomalies);
 * ``optimize_nnghs`` / ``optimize_nnghs_anoms``: sweep the normals or the
   anomaly neighbourhood size and pick, per region, the smallest k within one
-  standard error of the best per-station MAE.
+  standard error of the best per-station MAE;
+* ``xval_infill``: hold out observed daily entries, infill the network
+  (``topotpu_torch.infill``) and score the held-out entries.
 
 Leave-one-out is one batched run per month on the device: the "cells" are
 the station locations, and each station is left out of its own
@@ -29,7 +31,7 @@ import types
 import numpy as np
 import torch
 
-from topotpu.core.config import InterpParams
+from topotpu.core.config import InterpParams, PPCAParams
 from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.geo.distance import unit_xyz
 from topotpu_torch.geo.neighbors import select_neighbors
@@ -179,6 +181,39 @@ def xval_interp_daily(
         "rmse": float(np.sqrt((err**2).mean())) if err.size else float("nan"),
         "mae_by_month": mae_by_month,
         "per_station_mae": np.where(vmask, psm, np.nan),
+    }
+
+
+def xval_infill(
+    obs: np.ndarray,
+    month_idx: np.ndarray,
+    params: PPCAParams,
+    holdout_frac: float = 0.2,
+    seed: int = 0,
+    stn_lon=None,
+    stn_lat=None,
+    *,
+    device: torch.device | str,
+) -> dict:
+    """Hold out observed entries, infill on ``device``, score the held-out
+    entries (BASELINE config #3's protocol). The hold-out is drawn in numpy
+    from ``seed`` exactly as in the JAX package, so both hold out the same
+    entries."""
+    from topotpu_torch.infill import infill_network  # the infill package imports interp
+
+    rng = np.random.default_rng(seed)
+    observed = np.isfinite(obs)
+    hold = observed & (rng.uniform(size=obs.shape) < holdout_frac)
+    obs_masked = np.where(hold, np.nan, obs)
+    res = infill_network(obs_masked, month_idx, params, stn_lon=stn_lon, stn_lat=stn_lat,
+                         device=device)
+    err = (res.filled - obs)[hold]
+    return {
+        "mae": float(np.abs(err).mean()),
+        "bias": float(err.mean()),
+        "rmse": float(np.sqrt((err**2).mean())),
+        "n_holdout": int(hold.sum()),
+        "result": res,
     }
 
 

@@ -3,7 +3,8 @@
 The world itself comes from ``topotpu.io.synthetic.make_world`` (numpy only);
 ``tile_inputs_from_world`` is the torch counterpart of its namesake there, and
 ``station_arrays_from_world`` gives the numpy station arrays that the
-station-side stages of both packages take.
+station-side stages of both packages take, and ``station_network_from_world``
+the gappy daily observation matrix that the infill stage takes.
 """
 
 from __future__ import annotations
@@ -163,3 +164,17 @@ def station_arrays_from_world(world: SyntheticWorld, start: str = "2015-01-01") 
         anoms=world.stn_anoms.astype(np.float32),
         month_idx=days.month_idx,
     )
+
+
+def station_network_from_world(
+    world: SyntheticWorld, month_idx: np.ndarray, missing_frac: float, seed: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """(truth, obs): the (S, T) float32 daily station series of ``world``,
+    truth = stn_norm[month] + stn_anoms, and obs = truth with entries
+    missing (NaN) at random, each with probability ``missing_frac``, drawn
+    from ``default_rng(seed)``."""
+    S = world.n_stations
+    truth = (world.stn_norm[np.arange(S)[:, None], month_idx[None, :]]
+             + world.stn_anoms).astype(np.float32)
+    gaps = np.random.default_rng(seed).uniform(size=truth.shape) < missing_frac
+    return truth, np.where(gaps, np.float32(np.nan), truth)
