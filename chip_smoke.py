@@ -13,36 +13,54 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    a 512-station pool, k = 32 and 64; the daily contraction at D = 744 and
    2,976), with the CPU parity tests' tolerances on 99.9 % of values, a cap
    on every value and a float64 run as arbiter (see ``_compare_krig``), and
-   CUDA-event times. Then the fused OK solve at its own API, both entries
+   CUDA-event times. ``krig_normals`` takes the tile step's 24 systems a
+   cell in one launch, with one shared neighbourhood and with one a month
+   (and, at k = 32, under the gaussian and the uniform weight kernel); its
+   time stands beside that of the same systems solved one a launch, 24
+   launches on the same inputs. Beside each kernel's time: its bound (the
+   larger of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s), and
+   for the daily contraction the time of ``scatter_add_`` + ``matmul`` (two
+   library calls). Then the fused OK solve at its own API, both entries
    (pair distances, xyz), B = 65,536 and k = 32 and 64: one call of each
    entry with the launch counters from 0, then the comparison with the
    plain version (``tests/test_pallas_krig.py``'s tolerances on every value,
    ok flags identical, masked weights exactly 0).
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
-   run-global pack lattice and the reconcile. Both kernels' launch counters
-   must rise during the run; the decoded int16 product is held against the
-   float64 numpy oracle and the world's true normals.
+   run-global pack lattice and the reconcile. The run must launch
+   ``krig_normals`` and ``scatter_daily`` exactly once each; the decoded
+   int16 product is held against the float64 numpy oracle and the world's
+   true normals. Then the same step with per-variable neighbourhood sizes
+   on one 128 x 128 tile, which launches ``krig_normals`` once a variable.
 5. the reconcile on the lattice at one 128 x 128 production tile with
    crossing variables: no cell where both are ok may have tmax < tmin.
-6. a profiler breakdown of one step.
+6. a profiler breakdown of one step, with the launch counts read from the
+   trace (one ``krig_normals`` kernel) and the copy and ``cat`` kernels'
+   share.
 7. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
    krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
    share, the July empirical variograms of 256 sampled stations (recomputed
    from the same month's residuals) held against the float64 loop oracle,
-   and the timed run's fits of them against scipy's; then the LOO x-val
+   and the timed run's fits of them against scipy's; then the indexed
+   ``krig_normals`` kernel against its plain version at the x-val runs' own
+   shapes (12 LOO neighbourhoods, the 10,000 stations as cells and as table
+   rows, one variable) at k = 32 by ``_compare_krig``'s rule and at k = 16
+   with float64 deciding by statistics (``ill_conditioned``); then the LOO x-val
    of normals at k = 32 (accuracy bars, July normals of 256 stations against
    the float64 pipeline oracle run with the station left out), the nnghs
    sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
-   anomaly sweep over (8, 16, 24, 32). The ``krig_normals`` launch counter
-   must rise by 12 per x-val run. Each stage's wall time and the peak device
+   anomaly sweep over (8, 16, 24, 32). The indexed ``krig_normals`` launch
+   counter must rise by one per x-val run. Each stage's wall time and the peak device
    memory are printed.
 8. the PPCA infill at BASELINE config #3's settings
    (``configs/config3_infill.json``: 12 components, 24 predictors, 200
-   iterations, batches of 32) over the station phase's world, 10,000
-   stations and 1,461 days (config #3's 1986-2015 span, 10,957 days, took
-   the phase 224 s on an H100 80GB HBM3 at 700 W, over its 120 s budget):
+   iterations, batches of 32) over the first 5,000 stations of the station
+   phase's world and its 1,461 days (config #3's 1986-2015 span, 10,957
+   days, took the phase 224 s on an H100 80GB HBM3 at 700 W, over its 120 s
+   budget; all 10,000 stations took the host-bound EM loop 66-99 s and the
+   whole script 269-285 s, so the network is cut to keep the script under
+   240 s; 5,000 stations still take the device branch of the selection):
    the CLI's 15 % random gaps, then ``xval_infill``'s
    20 % hold-out, then the post-infill
    changepoint flags. Printed: the walls of ``select_predictors``, the EM
@@ -57,11 +75,14 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    between the card and the CPU (``filled`` within 5e-2 C, 5e-3 C on 99.9 %
    of entries; iteration counts within one).
 9. the card's name and power limit, one JSON line of kernels (each launch
-   count is the sum over the main-path runs, each counted from 0) and, as
-   the last line, ``{"ok": true, "device": {...}}``.
+   count is the sum over the main-path runs, each counted from 0; each
+   kernel with its time, its plain version's, its bound and the library's
+   way where there is one) and, as the last line,
+   ``{"ok": true, "device": {...}}``. ``[phase]`` lines give each phase's
+   wall.
 
-It imports nothing of JAX (the shared ``topotpu`` modules it uses, the
-configuration, dates, synthetic world and oracle, are numpy only).
+It imports nothing of JAX and nothing of the JAX package: configuration,
+dates, the synthetic world and the float64 oracle are the port's own.
 """
 
 import json
@@ -86,10 +107,13 @@ ST_START, ST_END = "2015-01-01", "2018-12-31"  # one 4-year chunk, 1,461 days
 ST_SAMPLE = 256       # stations held against the float64 oracles
 # infill slice: BASELINE config #3 over the station phase's network
 IN_CONFIG = "configs/config3_infill.json"
+IN_STATIONS = 5000    # the first 5,000 of the station phase's 10,000 (see phase_infill)
 IN_GAPS = 0.15        # the CLI's synthetic random gaps (cli/steps.py step_synth_data)
 IN_HOLDOUT = 0.2      # xval_infill's hold-out
 IN_TIE_MARGIN = 1e-4  # predictor score units (|corr| + 1); float32 grams part by ~1e-6
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -102,7 +126,7 @@ def phase_environment():
     from topotpu_torch.core.device import cuda_device
 
     dev = cuda_device()  # raises without a CUDA device
-    if shutil.which("g++") is None:  # the post-infill flags build topotpu.homog's C++ core
+    if shutil.which("g++") is None:  # the post-infill flags build homog/pha_core.cpp
         raise RuntimeError("no g++ on the PATH")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -151,32 +175,51 @@ def cuda_ms(fn, reps, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
-ROW_NAMES = ("xyz3k", "dist_t", "mask_t", "covs_t", "cell_t", "norm_t",
-             "vario_t", "acovs_t")
-ROW_COUNTS = dict(xyz3k=3, dist_t=1, mask_t=1, covs_t=3, norm_t=1, vario_t=3, acovs_t=3)
+def bound(nbytes, flops):
+    """The least time the card could take, ms, and what sets it: every input
+    byte read once and every output byte written once at the memory rate, or
+    the float32 operations at the peak rate outside the tensor cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def solve_flops(k, xyz=True):
+    """Float32 operations of one k-neighbour kriging system, counted from
+    the chain (a division, a square root, an exp or an asin as one): the
+    covariance (k^2 / 2 entries of 4), the Cholesky (k^3 / 3), two
+    right-hand sides through two triangular solves (4 k^2), the OK
+    reduction (10 k); with ``xyz`` the k^2 / 2 pair distances of 12."""
+    return 2 * k * k + k**3 / 3 + 4 * k * k + 10 * k + (6 * k * k if xyz else 0)
+
+
+def krig_flops(k, n_systems, n_nbr=1):
+    """Operations of the normals chain for one cell: per neighbourhood the
+    weights, pair distances, two fixed design columns, the gain rows (a
+    4-column design: 10 + 4 products of 3 k, and the small solves); per
+    system one design column, the WLS normal equations and right-hand side,
+    the residuals, the variogram weights and the kriging solve."""
+    per_nbr = 10 * k + 6 * k * k + 2 * 8 * k + (3 * 8 * k + 14 * 3 * k + 200)
+    per_system = 8 * k + 14 * 3 * k + 200 + 10 * k + 6 * k + solve_flops(k, xyz=False)
+    return n_nbr * per_nbr + n_systems * per_system
 
 
 def _krig_planes(rows64, k, dev):
-    """The k-neighbour prefix of the 64-neighbour planes, with holes: the
-    last slot of every 7th cell masked and cell 3 left with two valid slots
-    (fewer than min_neighbors)."""
+    """The k-neighbour prefix of the 64-neighbour planes xyz3k (3k, C), dist_t
+    and mask_t (k, C), with holes: the last slot of every 7th cell masked and
+    cell 3 left with two valid slots (fewer than min_neighbors)."""
     import torch
 
     C = rows64["dist_t"].shape[1]
-    out = {}
-    for name in ROW_NAMES:
-        a = rows64[name]
-        if name in ROW_COUNTS:
-            n = ROW_COUNTS[name]
-            a = a.reshape(n, 64, C)[:, :k].reshape(n * k, C)
-        out[name] = np.array(a)
-    out["mask_t"][-1, ::7] = 0.0
-    out["mask_t"][2:, 3] = 0.0
-    out["dist_t"] *= out["mask_t"]
-    return [torch.from_numpy(out[n]).to(dev) for n in ROW_NAMES]
+    xyz3k = np.array(rows64["xyz3k"].reshape(3, 64, C)[:, :k].reshape(3 * k, C))
+    dist_t, mask_t = np.array(rows64["dist_t"][:k]), np.array(rows64["mask_t"][:k])
+    mask_t[-1, ::7] = 0.0
+    mask_t[2:, 3] = 0.0
+    dist_t *= mask_t
+    return [torch.from_numpy(a).to(dev) for a in (xyz3k, dist_t, mask_t)]
 
 
-def _compare_krig(got, want, want64, k):
+def _compare_krig(got, want, want64, k, ill_conditioned=False):
     """Kernel vs its float32 plain version, with a float64 plain run as the
     arbiter. At 65,536 cells a few cells have a nearly collinear trend
     design (lst follows elevation) whose float32 rounding is amplified by
@@ -185,34 +228,61 @@ def _compare_krig(got, want, want64, k):
     at least 99.9 % of values within the parity tolerance (normal and trend
     rtol 1e-4 atol 1e-3, 2e-3 above k = 32; variance rtol 1e-3 atol 1e-4;
     variogram and gains rtol 1e-4 atol 1e-5); every value within the cap
-    (1e-2 C for normal and trend, 1e-3 for variance and gains, 1e-4 for the
-    variogram); and the kernel no further from float64 than 2x the plain
-    version's distance + the parity atol."""
-    got, want, want64 = (t.cpu().numpy().astype(np.float64) for t in (got, want, want64))
-    np.testing.assert_array_equal(got[2], want[2], err_msg="ok flags")
+    (1e-2 C for normal and trend, 1e-3 for variance and gains; 1e-4 for the
+    variogram values outside the parity tolerance, since a fitted range of
+    thousands of km has a float32 spacing above 1e-4); and the kernel no further from float64 than 2x the plain
+    version's distance + the parity atol.
+
+    With ``ill_conditioned`` (the LOO systems at k = 16 over a network at
+    8.5 km spacing: a 4-column trend design whose float32 plain version
+    itself sits up to 5e-2 C from float64 at a few stations, and where the
+    worst station of a month is the kernel's as often as the plain
+    version's) the normal and the trend are held to the parity tolerance on
+    99 % of values, without the cap, and float64 decides by statistics, not
+    value by value: the mean, the 99th and the 99.9th percentile of the
+    kernel's distances at most 2x the plain version's + 1e-4 C, and its
+    worst within 0.1 C, the float32 band on record for small k."""
+    import torch
+
+    got, want, want64 = (t.double() for t in (got, want, want64))  # compared on the card
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError("ok flags differ")
     ok = want[2] > 0.5
     atol_n = 2e-3 if k > 32 else 1e-3
     checks = [
-        (np.s_[0, ok], 1e-4, atol_n, 1e-2, "normal"),
-        (np.s_[3, ok], 1e-4, atol_n, 1e-2, "trend"),
-        (np.s_[1, ok], 1e-3, 1e-4, 1e-3, "variance"),
-        (np.s_[4:7], 1e-4, 1e-5, 1e-4, "variogram"),
-        (np.s_[8:, ok], 1e-4, 1e-5, 1e-3, "gains"),
+        (lambda t: t[0][ok], 1e-4, atol_n, 1e-2, "normal"),
+        (lambda t: t[3][ok], 1e-4, atol_n, 1e-2, "trend"),
+        (lambda t: t[1][ok], 1e-3, 1e-4, 1e-3, "variance"),
+        (lambda t: t[4:7], 1e-4, 1e-5, 1e-4, "variogram"),
+        (lambda t: t[8:][:, ok], 1e-4, 1e-5, 1e-3, "gains"),
     ]
     err = 0.0
-    for sl, rtol, atol, cap, what in checks:
-        g, w, w64 = got[sl], want[sl], want64[sl]
-        d = np.abs(g - w)
-        inside = float(np.mean(d <= atol + rtol * np.abs(w)))
-        if inside < 0.999 or d.max() > cap:
-            raise AssertionError(f"{what}: {inside:.5f} within tolerance, max {d.max():.3e}")
-        e_kern, e_plain = np.abs(g - w64), np.abs(w - w64)
-        if np.any(e_kern > 2 * e_plain + atol + rtol * np.abs(w64)):
+    for pick, rtol, atol, cap, what in checks:
+        g, w, w64 = pick(got), pick(want), pick(want64)
+        d = (g - w).abs()
+        within = d <= atol + rtol * w.abs()
+        inside = float(within.double().mean())
+        dmax = float(d.max())
+        by_stats = ill_conditioned and what in ("normal", "trend")
+        # one float32 step of a 2,000 km range is 1.2e-4, above the cap
+        capped = d[~within] if what == "variogram" else d
+        over_cap = not by_stats and capped.numel() > 0 and float(capped.max()) > cap
+        if inside < (0.99 if by_stats else 0.999) or over_cap:
+            raise AssertionError(f"{what}: {inside:.5f} within tolerance, max {dmax:.3e}")
+        e_kern, e_plain = (g - w64).abs(), (w - w64).abs()
+        if by_stats:
+            stats = (torch.mean, lambda e: e.quantile(0.99), lambda e: e.quantile(0.999))
+            further = float(e_kern.max()) > 0.1 or any(
+                float(stat(e_kern)) > 2 * float(stat(e_plain)) + 1e-4 for stat in stats)
+        else:
+            further = bool((e_kern > 2 * e_plain + atol + rtol * w64.abs()).any())
+        if further:
             raise AssertionError(f"{what}: kernel further from float64 than the plain "
-                                 f"version ({e_kern.max():.3e} vs {e_plain.max():.3e})")
-        err = max(err, float(d.max()))
-    return err, int((~ok).sum()), float(np.abs(got[0, ok] - want64[0, ok]).max()), \
-        float(np.abs(want[0, ok] - want64[0, ok]).max())
+                                 f"version ({float(e_kern.max()):.3e} vs "
+                                 f"{float(e_plain.max()):.3e})")
+        err = max(err, dmax)
+    return err, int((~ok).sum()), float((got[0][ok] - want64[0][ok]).abs().max()), \
+        float((want[0][ok] - want64[0][ok]).abs().max())
 
 
 def neighbour_planes(world):
@@ -222,37 +292,124 @@ def neighbour_planes(world):
     C = N_SIDE * N_SIDE
     rows, cols = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
     t0 = time.perf_counter()
-    rows64 = krig_rows_from_world(world, rows, cols, 64, month=6)
+    rows64 = krig_rows_from_world(world, rows, cols, 64)
     log(f"[kernels] neighbour planes for {C} cells built on the host in "
         f"{time.perf_counter() - t0:.3f} s")
     return rows64
 
 
-def phase_kernels(rows64, dev):
+def _indexed_inputs(ti, k, per_month, dev):
+    """The indexed entry's arguments for the benchmark tile with both
+    variables: (idx, dist, mask, table, cell), from the tile step's own
+    functions, with ``_krig_planes``' holes (the last slot of every 7th cell
+    masked, cell 3 left with two valid slots). With ``per_month`` station
+    7 m + 3 is invalid in month m, so the 12 neighbourhoods differ."""
     import torch
 
-    from topotpu_torch.kernels.krig_normals import krig_normals_fused, krig_normals_fused_ref
+    from topotpu_torch.interp.point import VarFields, tile_neighborhoods, tile_tables
+
+    if per_month:
+        valid = ti.stn_valid.clone()
+        for m in range(12):
+            valid[7 * m + 3, m] = False
+        ti = ti._replace(stn_valid=valid)
+    pair = _pair(ti, 9.0, 0.85)
+    table, cell = tile_tables(ti, (VarFields(ti.stn_norm, ti.stn_vario, ti.stn_anoms), pair.b))
+    nbrs = tile_neighborhoods(ti, k, not per_month)
+    idx = torch.stack([n.idx for n in nbrs])
+    dist = torch.stack([n.dist for n in nbrs])
+    mask = torch.stack([n.mask for n in nbrs])
+    mask[:, ::7, -1] = False
+    mask[:, 3, 2:] = False
+    dist = dist * mask
+    return idx, dist, mask, table, cell
+
+
+def _compare_indexed(args, pairs, per_month, k, ill_conditioned=False,
+                     weight_kernel="bisquare"):
+    """The indexed entry against its plain version on the arguments ``args``
+    (idx, dist, mask, table, cell), system by system, by ``_compare_krig``'s
+    rule: the worst error, the most not-ok cells of a system, and the normals'
+    distances from float64 (kernel, plain)."""
+    import torch
+
+    from topotpu_torch.kernels.krig_normals import (
+        krig_normals_indexed,
+        krig_normals_indexed_ref,
+    )
+
+    kw = dict(weight_kernel=weight_kernel)
+    head, gains = krig_normals_indexed(*args, pairs, not per_month, **kw)
+    torch.cuda.synchronize()
+    want = krig_normals_indexed_ref(*args, pairs, not per_month, **kw)
+    idx, dist, mask, table, cell = args
+    want64 = krig_normals_indexed_ref(idx, dist.double(), mask, table.double(), cell.double(),
+                                      pairs, not per_month, **kw)
+    rows = lambda hg, p, n: torch.cat([hg[0][p].T, hg[1][n].T])  # noqa: E731
+    err = n_not_ok = 0
+    e64_kern = e64_plain = 0.0
+    for p, (m, _) in enumerate(pairs):
+        n = m if per_month else 0
+        e, bad, ek, ep = _compare_krig(rows((head, gains), p, n), rows(want, p, n),
+                                       rows(want64, p, n), k, ill_conditioned)
+        err, n_not_ok = max(err, e), max(n_not_ok, bad)
+        e64_kern, e64_plain = max(e64_kern, ek), max(e64_plain, ep)
+    return err, n_not_ok, e64_kern, e64_plain
+
+
+def phase_kernels(world, days, rows64, dev):
+    import torch
+
+    from topotpu_torch.io.synthetic import tile_inputs_from_world
+    from topotpu_torch.kernels.krig_normals import (
+        krig_normals_indexed,
+        krig_normals_indexed_ref,
+    )
     from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
 
     C = N_SIDE * N_SIDE
     report = {}
-    for k, weight_kernel in ((32, "bisquare"), (32, "gaussian"), (32, "uniform"),
-                             (64, "bisquare")):
-        planes = _krig_planes(rows64, k, dev)
-        kern = lambda: krig_normals_fused(*planes, weight_kernel=weight_kernel)  # noqa: E731
-        plain = lambda: krig_normals_fused_ref(*planes, weight_kernel=weight_kernel)  # noqa: E731
-        got = kern()
-        torch.cuda.synchronize()
-        want64 = krig_normals_fused_ref(*(p.double() for p in planes),
-                                        weight_kernel=weight_kernel)
-        err, n_not_ok, e64_kern, e64_plain = _compare_krig(got, plain(), want64, k)
-        del want64
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
-        log(f"[kernels] krig_normals C={C} k={k} {weight_kernel}: max_abs_err {err:.3e} "
-            f"(normal vs float64: kernel {e64_kern:.3e}, plain {e64_plain:.3e}; "
-            f"not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if (k, weight_kernel) == (K, "bisquare"):
-            report["krig_normals"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # krig_normals: 24 systems a cell (12 months x 2 variables) in one launch
+    cells = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
+    ti, _ = tile_inputs_from_world(world, days.month_idx, *cells, dev)
+    pairs = [(m, v) for m in range(12) for v in range(2)]
+    for k, per_month, weight_kernel in (
+            (K, False, "bisquare"), (K, True, "bisquare"), (64, False, "bisquare"),
+            (64, True, "bisquare"), (K, False, "gaussian"), (K, False, "uniform")):
+        args = _indexed_inputs(ti, k, per_month, dev)
+        err, n_not_ok, e64_kern, e64_plain = _compare_indexed(
+            args, pairs, per_month, k, weight_kernel=weight_kernel)
+        kw = dict(weight_kernel=weight_kernel)
+        kern = lambda: krig_normals_indexed(*args, pairs, not per_month, **kw)  # noqa: E731
+        plain = lambda: krig_normals_indexed_ref(*args, pairs, not per_month, **kw)  # noqa: E731
+        ms, plain_ms = cuda_ms(kern, 10), cuda_ms(plain, 1, warmup=0)
+        idx, dist, mask, table, cell = args
+        N = idx.shape[0]
+        nbytes = (idx.numel() * (8 + 4 + 1) + (table.numel() + cell.numel()) * 4
+                  + (len(pairs) * C * 8 + N * C * k) * 4)
+        bnd = bound(nbytes, C * krig_flops(k, len(pairs), N))
+        line = (f"[kernels] krig_normals C={C} S={N_STATIONS} k={k} {weight_kernel} "
+                f"{'one neighbourhood a month' if per_month else 'shared neighbourhood'}, "
+                f"{len(pairs)} systems a cell in 1 launch: max_abs_err {err:.3e} (normal vs "
+                f"float64: kernel {e64_kern:.3e}, plain {e64_plain:.3e}; not-ok cells "
+                f"{n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+        if (per_month, weight_kernel) == (False, "bisquare"):
+            # the same systems one a launch: what sharing the neighbourhood's
+            # weights, pair distances and gains in one launch saves
+            each = lambda: [krig_normals_indexed(*args, [pr], True) for pr in pairs]  # noqa: E731
+            heads = torch.stack([h[0] for h, _ in each()])
+            if not torch.equal(torch.nan_to_num(heads), torch.nan_to_num(kern()[0])):
+                raise AssertionError("a system's head depends on the launch it is solved in")
+            line += (f"; the same systems one a launch, {len(pairs)} launches: "
+                     f"{cuda_ms(each, 3, warmup=1):.4f} ms (heads equal bit for bit)")
+        log(line)
+        if (k, per_month, weight_kernel) == (K, False, "bisquare"):
+            report["krig_normals"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                          library_ms=None, **bnd)
+        del args, idx, dist, mask, table, cell
+    del ti
 
     rng = np.random.default_rng(1)
     idx = np.ascontiguousarray(rows64["idx"][:, :K].T.astype(np.int32))  # (k, C)
@@ -266,16 +423,29 @@ def phase_kernels(rows64, dev):
         ]
         kern = lambda: scatter_daily(*planes)  # noqa: E731
         plain = lambda: scatter_daily_ref(*planes)  # noqa: E731
+
+        def library():  # a dense (C, S) gain matrix, then one full-fp32 product
+            i, g, m, y = planes
+            G = torch.zeros((C, N_STATIONS), dtype=g.dtype, device=dev)
+            return G.scatter_add_(1, i.T.long(), (g * m).T) @ y
+
         got = kern().cpu().numpy()
         want = plain().cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=f"scatter D={D}")
+        np.testing.assert_allclose(library().cpu().numpy(), want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"scatter_add_ + matmul D={D}")
         err = float(np.abs(got - want).max())
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
+        library_ms = cuda_ms(library, 5, warmup=1)
+        bnd = bound(sum(p.numel() for p in planes) * 4 + C * D * 4, 2.0 * K * C * D)
         log(f"[kernels] scatter_daily C={C} S={N_STATIONS} k={K} D={D}: max_abs_err "
-            f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; scatter_add_ + matmul (two "
+            f"library calls, full fp32) {library_ms:.4f} ms "
             f"(output write {C * D * 4 / ms / 1e6:.1f} GB/s)")
         if D == 744:
-            report["scatter_daily"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            report["scatter_daily"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           library_ms=library_ms, **bnd)
     return report
 
 
@@ -287,7 +457,7 @@ def _ok_inputs(rows64, k, dev, seed=3):
 
     from topotpu_torch.geo.distance import pairwise_km_from_xyz
 
-    xyz3k, dist_t, mask_t = _krig_planes(rows64, k, dev)[:3]
+    xyz3k, dist_t, mask_t = _krig_planes(rows64, k, dev)
     B = dist_t.shape[1]
     xyz = xyz3k.reshape(3, k, B).permute(2, 1, 0)
     dp = pairwise_km_from_xyz(xyz, xyz).permute(1, 2, 0).contiguous()
@@ -327,8 +497,8 @@ def phase_ok_solve(rows64, dev):
         ok_solve_fused_xyz_ref,
     )
 
-    entries = dict(ok_solve=(ok_solve_fused, ok_solve_fused_ref, 0),
-                   ok_solve_xyz=(ok_solve_fused_xyz, ok_solve_fused_xyz_ref, 1))
+    entries = dict(ok_solve_fused=(ok_solve_fused, ok_solve_fused_ref, 0),
+                   ok_solve_fused_xyz=(ok_solve_fused_xyz, ok_solve_fused_xyz_ref, 1))
     report, launches = {}, {}
     for k in (K, 64):
         dp, xyz3k, dist_t, mask_t, par = _ok_inputs(rows64, k, dev)
@@ -337,9 +507,9 @@ def phase_ok_solve(rows64, dev):
             ok_solve_fused(dp, dist_t, mask_t, *par)
             ok_solve_fused_xyz(xyz3k, dist_t, mask_t, *par)
             torch.cuda.synchronize()
-            launches = dict(ok_solve=ok_solve_fused.launches,
-                            ok_solve_xyz=ok_solve_fused_xyz.launches)
-            if launches != dict(ok_solve=1, ok_solve_xyz=1):
+            launches = dict(ok_solve_fused=ok_solve_fused.launches,
+                            ok_solve_fused_xyz=ok_solve_fused_xyz.launches)
+            if launches != dict(ok_solve_fused=1, ok_solve_fused_xyz=1):
                 raise RuntimeError(f"the OK-solve API did not launch its kernels: {launches}")
         for name, (kern_fn, plain_fn, xyz) in entries.items():
             args = ((xyz3k if xyz else dp), dist_t, mask_t, *par)
@@ -347,10 +517,15 @@ def phase_ok_solve(rows64, dev):
             plain = lambda: plain_fn(*args)  # noqa: E731
             err, n_not_ok = _compare_ok(kern(), plain(), mask_t, k)
             ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
-            log(f"[ok_solve] {name} B={dist_t.shape[1]} k={k}: max_abs_err {err:.3e} "
-                f"(not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            B = dist_t.shape[1]
+            bnd = bound((sum(a.numel() for a in args) + (k + 1) * B) * 4 + B,
+                        B * solve_flops(k, xyz=bool(xyz)))
+            log(f"[ok_solve] {name} B={B} k={k}: max_abs_err {err:.3e} "
+                f"(not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
             if k == K:
-                report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    library_ms=None, **bnd)
         del dp
     return report, launches
 
@@ -379,7 +554,7 @@ def _decode(buf, scales, v):
 def _oracle_check(world, days, rows, cols, picks, daily, normal, se, day_ok=None):
     """Hold decoded var-A values at the cells ``picks`` against the float64
     oracle, in batches until ORACLE_CELLS cells or ORACLE_BUDGET_S seconds."""
-    from topotpu.oracle.pipeline import interp_tile_oracle
+    from topotpu_torch.oracle.pipeline import interp_tile_oracle
 
     vario = np.tile(np.asarray(world.true_vario, np.float64), (world.n_stations, 12, 1))
     t0 = time.perf_counter()
@@ -409,11 +584,11 @@ def _oracle_check(world, days, rows, cols, picks, daily, normal, se, day_ok=None
 def phase_slice(world, days, dev):
     import torch
 
-    from topotpu.core.config import InterpParams, TopoConfig
+    from topotpu_torch.core.config import InterpParams, TopoConfig
     from topotpu_torch.interp.convert import fixed_scales_from_config
     from topotpu_torch.interp.point import interp_tile_pair_flat
     from topotpu_torch.io.synthetic import tile_inputs_from_world
-    from topotpu_torch.kernels.krig_normals import krig_normals_fused
+    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
     from topotpu_torch.kernels.scatter_daily import scatter_daily
 
     C = N_SIDE * N_SIDE
@@ -427,13 +602,13 @@ def phase_slice(world, days, dev):
         fixed_scales=fixed, reconcile=True,
     )
 
-    krig_normals_fused.launches = 0
-    scatter_daily.launches = 0
+    krig_normals_indexed.launches = scatter_daily.launches = 0
     out = step()
     torch.cuda.synchronize()
-    launches = dict(krig_normals=krig_normals_fused.launches,
+    launches = dict(krig_normals=krig_normals_indexed.launches,
                     scatter_daily=scatter_daily.launches)
-    if launches["krig_normals"] != 24 or launches["scatter_daily"] < 1:
+    # one launch covers the step's 24 systems
+    if launches != dict(krig_normals=1, scatter_daily=1):
         raise RuntimeError(f"main path did not run through the kernels: {launches}")
 
     walls = []
@@ -468,10 +643,55 @@ def phase_slice(world, days, dev):
     return launches, step
 
 
+def phase_per_var(world, days, dev):
+    """The paired step with per-variable neighbourhood sizes (what the nnghs
+    optimisation hands to production) on one 128 x 128 tile: each variable's
+    12 systems take a launch of ``krig_normals`` of their own, masked beyond
+    that variable's k. Var A keeps k = ka = 32 and is held against the
+    float64 oracle; var B runs at k = 24, ka = 16."""
+    import torch
+
+    from topotpu_torch.core.config import InterpParams, TopoConfig
+    from topotpu_torch.interp.convert import fixed_scales_from_config
+    from topotpu_torch.interp.point import interp_tile_pair_flat
+    from topotpu_torch.io.synthetic import tile_inputs_from_world
+    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
+    from topotpu_torch.kernels.scatter_daily import scatter_daily
+
+    tile = TopoConfig().tile_rows
+    rows, cols = np.unravel_index(np.arange(tile * tile), (tile, tile))
+    ti, layout = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
+    params = InterpParams(k_neighbors=K, k_per_var=(K, 24), ka_per_var=(K, 16))
+    fixed = fixed_scales_from_config(TopoConfig(), 2)
+    krig_normals_indexed.launches = scatter_daily.launches = 0
+    t0 = time.perf_counter()
+    out = interp_tile_pair_flat(_pair(ti, 9.0, 0.85), layout.slot_of_day, params,
+                                shared_validity=True, fixed_scales=fixed, reconcile=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(krig_normals=krig_normals_indexed.launches,
+                    scatter_daily=scatter_daily.launches)
+    if launches != dict(krig_normals=2, scatter_daily=2):  # one a variable, one a ka
+        raise RuntimeError(f"per-variable step: launches {launches}")
+    buf = out.buf.cpu().numpy()
+    daily, normal, se = _decode(buf, fixed, 0)
+    daily_b, normal_b, se_b = _decode(buf, fixed, 1)
+    for a in (daily, normal, se, daily_b, normal_b, se_b):
+        assert np.isfinite(a).all(), "a land cell came out not ok"
+    picks = np.random.default_rng(7).choice(tile * tile, 32, replace=False)
+    n, errs, _ = _oracle_check(world, days, rows, cols, picks, daily, normal, se)
+    log(f"[per-var] {tile}x{tile} tile, k_per_var=({K}, 24) ka_per_var=({K}, 16): launches "
+        f"{launches}; first-call wall {wall * 1e3:.3f} ms; var A vs the oracle on {n} cells: "
+        f"max err normal {errs['normal']:.3e} se {errs['se']:.3e} daily {errs['daily']:.3e} C; "
+        f"var B normals differ from var A's + 9 C by up to "
+        f"{float(np.abs(normal_b - normal - 9.0).max()):.3e} C")
+    return launches
+
+
 def phase_reconcile(world, days, dev):
     import torch
 
-    from topotpu.core.config import InterpParams, TopoConfig
+    from topotpu_torch.core.config import InterpParams, TopoConfig
     from topotpu_torch.interp.convert import fixed_scales_from_config
     from topotpu_torch.interp.point import interp_tile_pair, interp_tile_pair_flat, ungroup_days
     from topotpu_torch.io.synthetic import tile_inputs_from_world
@@ -529,7 +749,7 @@ def profile_breakdown(tag, what, fn):
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     if not events:
         log(f"[{tag}] the profiler recorded no device time")
-        return
+        return []
     total = sum(dev_us(e) for e in events)
     ours = sum(dev_us(e) for e in events if any(f"{k}_kernel" in e.key for k in KERNELS))
     top = sorted(events, key=lambda e: -dev_us(e))[:8]
@@ -538,6 +758,7 @@ def profile_breakdown(tag, what, fn):
         f"kernels {total / 1e3:.3f} ms ({len(events)} kinds; busy share "
         f"{total / wall_us:.3f}), of which the port kernels {ours / 1e3:.3f} ms; "
         f"top: {parts}")
+    return [(e.key, dev_us(e) / 1e3, e.count) for e in events]
 
 
 def phase_profile(step):
@@ -545,7 +766,17 @@ def phase_profile(step):
 
     step()
     torch.cuda.synchronize()
-    profile_breakdown("profile", "one step", step)
+    events = profile_breakdown("profile", "one step", step)
+    if not events:
+        return
+    pick = lambda word: [(ms, n) for key, ms, n in events if word in key]  # noqa: E731
+    krig, copies, cats = pick("krig_normals"), pick("copy"), pick("CatArrayBatchedCopy")
+    copies = [c for c in copies if c not in cats]
+    total = lambda sel: (sum(ms for ms, _ in sel), sum(n for _, n in sel))  # noqa: E731
+    log("[profile] by kind: krig_normals %.3f ms in %d launches; copy kernels %.3f ms in %d; "
+        "cat %.3f ms in %d" % (*total(krig), *total(copies), *total(cats)))
+    if total(krig)[1] != 1:
+        raise RuntimeError(f"the step launched krig_normals {total(krig)[1]} times, not once")
 
 
 def _wsse(gamma, h, npairs, nug, ps, rg):
@@ -573,7 +804,7 @@ def _variogram_oracle(st, vario_m, month, picks, vp, ip, dev):
     have their nugget at the 0 bound."""
     import torch
 
-    from topotpu.oracle import numpy_ref
+    from topotpu_torch.oracle import numpy_ref
     from topotpu_torch.interp.convert import to_tensor
     from topotpu_torch.interp.params import station_residuals
     from topotpu_torch.stats.variogram import empirical_variogram
@@ -620,7 +851,7 @@ def _variogram_oracle(st, vario_m, month, picks, vp, ip, dev):
 def _loo_oracle(st, vario_m, normal_m, month, picks, k):
     """July LOO normals of the stations ``picks`` against the float64
     pipeline oracle run with each station left out of the pool."""
-    from topotpu.oracle.pipeline import interp_cell_month
+    from topotpu_torch.oracle.pipeline import interp_cell_month
 
     cov = np.stack([st.elev, st.tdi, st.lst[:, month]], 1)
     errs = []
@@ -639,8 +870,8 @@ def phase_stations(dev):
     network size, through the port's public functions."""
     import torch
 
-    from topotpu.core.config import InterpParams, VariogramParams
-    from topotpu.io.synthetic import make_world
+    from topotpu_torch.core.config import InterpParams, VariogramParams
+    from topotpu_torch.interp import xval
     from topotpu_torch.interp.params import (
         build_krig_params,
         fill_failed_fits,
@@ -652,8 +883,8 @@ def phase_stations(dev):
         xval_interp_daily,
         xval_interp_normals,
     )
-    from topotpu_torch.io.synthetic import station_arrays_from_world
-    from topotpu_torch.kernels.krig_normals import krig_normals_fused
+    from topotpu_torch.io.synthetic import make_world, station_arrays_from_world
+    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 
     t0 = time.perf_counter()
     ndays = int((np.datetime64(ST_END) - np.datetime64(ST_START)).astype(int)) + 1
@@ -700,15 +931,31 @@ def phase_stations(dev):
                            f"median ratio {fit_median:.4f}")
     st = st._replace(vario=vario)
 
+    # the indexed kernel at the x-val runs' own shapes (12 LOO neighbourhoods,
+    # the stations as cells and as table rows, one variable) against its
+    # plain version, at the x-val's k and at one small k of the nnghs sweep
+    st_dev = xval._stations(dev, *st.krig())
+    for k, ill in ((K, False), (16, True)):
+        t = time.perf_counter()
+        _, (*args, pairs, shared) = xval._loo_systems(st_dev, k)
+        err, n_not_ok, e64_kern, e64_plain = _compare_indexed(args, pairs, not shared, k, ill)
+        log(f"[stations] krig_normals indexed at the LOO shapes C=S={S} k={k}, {len(pairs)} "
+            f"systems on {args[0].shape[0]} neighbourhoods in 1 launch vs the plain version"
+            f"{' (float64 decides by mean, 99th and 99.9th percentile)' if ill else ''}: "
+            f"max_abs_err {err:.3e} (normal vs float64: kernel {e64_kern:.3e}, plain "
+            f"{e64_plain:.3e}; not-ok cells {n_not_ok}) ({time.perf_counter() - t:.1f} s)")
+        del args
+    del st_dev
+
     counts = {}
 
     def counted(name, runs, fn):
-        krig_normals_fused.launches = 0
+        krig_normals_indexed.launches = 0
         out = timed(name, fn)
-        counts[name] = krig_normals_fused.launches
-        if counts[name] != 12 * runs:
+        counts[name] = krig_normals_indexed.launches
+        if counts[name] != runs:  # one launch covers an x-val run's 12 months
             raise RuntimeError(f"{name}: {counts[name]} krig_normals launches, "
-                               f"expected {12 * runs}")
+                               f"expected {runs}")
         return out
 
     p32 = InterpParams(k_neighbors=K)
@@ -796,7 +1043,7 @@ def _scores64(obs_in, rows, lon, lat):
     network ``obs_in`` (NaN = missing), recomputed in float64 on the host
     from the same standardised float32 series: |corr| + 1 over >= 30 jointly
     observed days, else the proximity tiebreak; -1 on the diagonal."""
-    from topotpu.oracle.numpy_ref import haversine_km
+    from topotpu_torch.oracle.numpy_ref import haversine_km
 
     mask = np.isfinite(obs_in)
     mu = np.nanmean(np.where(mask, obs_in, np.nan), axis=1)
@@ -822,16 +1069,17 @@ def _scores64(obs_in, rows, lon, lat):
 
 def phase_infill(world, dev):
     """BASELINE config #3's PPCA settings (``configs/config3_infill.json``:
-    12 components, 24 predictors, 200 iterations) over the station phase's
-    ``world`` (the reference's whole network, one 4-year chunk: config #3's
-    1986-2015 span took the phase over 120 s), through ``xval_infill``: the
+    12 components, 24 predictors, 200 iterations) over the first
+    ``IN_STATIONS`` stations of the station phase's ``world`` and its 4-year
+    chunk (config #3's 1986-2015 span took the phase over 120 s, and the
+    whole network kept the script over 240 s), through ``xval_infill``: the
     CLI's 15 % random gaps, then the x-val's 20 % hold-out."""
     import pathlib
 
     import torch
 
-    from topotpu.core.config import TopoConfig
-    from topotpu.core.dates import get_days_metadata
+    from topotpu_torch.core.config import TopoConfig
+    from topotpu_torch.core.dates import get_days_metadata
     from topotpu_torch.infill import pipeline
     from topotpu_torch.infill.post_infill import changepoint_flags
     from topotpu_torch.interp.convert import to_tensor
@@ -843,6 +1091,8 @@ def phase_infill(world, dev):
     params = TopoConfig.load(pathlib.Path(__file__).resolve().parent / IN_CONFIG).ppca
     days = get_days_metadata(ST_START, ST_END)
     truth, obs = station_network_from_world(world, days.month_idx, IN_GAPS, seed=9)
+    truth, obs = truth[:IN_STATIONS], obs[:IN_STATIONS]
+    stn_lon, stn_lat = world.stn_lon[:IN_STATIONS], world.stn_lat[:IN_STATIONS]
     S, T = obs.shape
     log(f"[infill] {IN_CONFIG}'s {params} on {S} stations x {T} days ({ST_START} to "
         f"{ST_END}); gaps drawn on the host in {time.perf_counter() - t_phase:.3f} s")
@@ -852,7 +1102,7 @@ def phase_infill(world, dev):
     with _StageWalls(pipeline, ("select_predictors", "_infill_batch")) as walls:
         t = time.perf_counter()
         out = xval_infill(obs, days.month_idx, params, holdout_frac=IN_HOLDOUT, seed=0,
-                          stn_lon=world.stn_lon, stn_lat=world.stn_lat, device=dev)
+                          stn_lon=stn_lon, stn_lat=stn_lat, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     calls = pipeline._device_select_predictors.calls
@@ -898,7 +1148,7 @@ def phase_infill(world, dev):
     # predictor sets of sampled stations against a float64 recompute
     t = time.perf_counter()
     rows = np.sort(np.random.default_rng(8).choice(S, ST_SAMPLE, replace=False))
-    score = _scores64(seen, rows, world.stn_lon, world.stn_lat)
+    score = _scores64(seen, rows, stn_lon, stn_lat)
     n = res.predictors.shape[1]
     n_diff, worst = 0, 0.0
     for i, s in enumerate(rows):
@@ -958,25 +1208,38 @@ def phase_infill(world, dev):
 def main():
     t_start = time.perf_counter()
     dev, name = phase_environment()
-    from topotpu.core.dates import get_days_metadata
-    from topotpu.io.synthetic import make_world
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.io.synthetic import make_world
+
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        t_phase.append(time.perf_counter())
+        log(f"[phase] {name} took {t_phase[-1] - t_phase[-2]:.1f} s")
 
     phase_build()
+    lap("build")
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
     days = get_days_metadata("2015-01-01", "2015-12-31")
     rows64 = neighbour_planes(world)
-    report = phase_kernels(rows64, dev)
+    report = phase_kernels(world, days, rows64, dev)
+    lap("kernels")
     ok_report, ok_launches = phase_ok_solve(rows64, dev)
     del rows64
     launches, step = phase_slice(world, days, dev)
+    for kernel, n in phase_per_var(world, days, dev).items():
+        launches[kernel] += n
     phase_reconcile(world, days, dev)
     phase_profile(step)
     del step
+    lap("ok_solve, slice, per-var, reconcile, profile")
     st_launches, st_world = phase_stations(dev)
     launches["krig_normals"] += st_launches
+    lap("stations")
     phase_infill(st_world, dev)
     del st_world
+    lap("infill")
     launches.update(ok_launches)
     report.update(ok_report)
 
@@ -987,10 +1250,10 @@ def main():
                       "topotpu/kernels/pallas_krig.py:445"),
         scatter_daily=("topotpu_torch/kernels/csrc/scatter_daily.cu",
                        "topotpu/kernels/pallas_scatter.py:67"),
-        ok_solve=("topotpu_torch/kernels/csrc/ok_solve.cu",
-                  "topotpu/kernels/pallas_krig.py:584"),
-        ok_solve_xyz=("topotpu_torch/kernels/csrc/ok_solve.cu",
-                      "topotpu/kernels/pallas_krig.py:608"),
+        ok_solve_fused=("topotpu_torch/kernels/csrc/ok_solve.cu",
+                        "topotpu/kernels/pallas_krig.py:584"),
+        ok_solve_fused_xyz=("topotpu_torch/kernels/csrc/ok_solve.cu",
+                            "topotpu/kernels/pallas_krig.py:608"),
     )
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],

@@ -189,16 +189,31 @@ def test_infill_network_beats_climatology(net, infilled):
 
 
 def test_infill_network_batch_composition_invariant(net):
-    """Per-target results do not depend on the batch: bit for bit on the CPU
-    (``tests/test_ppca_infill.py``'s case on the port)."""
+    """Per-target results do not depend on the batch, up to float32 rounding
+    (``tests/test_ppca_infill.py``'s case on the port). The port does not
+    promise bit-for-bit equality across batch compositions: the batched
+    matrix products and reductions of the EM pick their blocking by the batch
+    count, and 40 iterations carry the last-bit differences along. Batches of
+    20 against batches of 7 gave imputed values 1.96e-4 C apart at the most
+    (13.7 % of values differ, all of them imputed; normals 5.7e-6 C apart,
+    iteration counts equal) on an AMD EPYC host with one torch thread and
+    with eight, and bit for bit on the CPU the test was first written on; on
+    an H100 one batch of 64 against two of 32 came 1.96e-3 C apart at 10,957
+    days. Held here: imputed values within 3e-3 C, normals within 1e-3 C,
+    iteration counts within one, observed entries returned exactly."""
     _, days, _, obs = net
     obs = obs[:20]
     params = PPCAParams(n_components=4, n_neighbors=8, max_iters=40)
     one = infill_network(obs, days.month_idx, params, batch_size=20, device="cpu")
     odd = infill_network(obs, days.month_idx, params, batch_size=7, device="cpu")
-    np.testing.assert_array_equal(one.filled, odd.filled)
-    np.testing.assert_array_equal(one.n_iters, odd.n_iters)
-    np.testing.assert_array_equal(one.norms, odd.norms)
+    seen = np.isfinite(obs)
+    np.testing.assert_array_equal(one.filled[seen], obs[seen])
+    np.testing.assert_array_equal(odd.filled[seen], obs[seen])
+    np.testing.assert_allclose(one.filled, odd.filled, rtol=0, atol=3e-3)
+    np.testing.assert_allclose(one.norms, odd.norms, rtol=0, atol=1e-3)
+    assert np.abs(one.n_iters.astype(int) - odd.n_iters.astype(int)).max() <= 1
+    np.testing.assert_array_equal(one.predictors, odd.predictors)
+    np.testing.assert_array_equal(one.bad, odd.bad)
 
 
 def test_monthly_normals_matches_jax(net, infilled):

@@ -1,5 +1,5 @@
-"""Device/dtype policy. Configuration types are shared with ``topotpu.core``,
-which imports no JAX."""
+"""Device/dtype policy, and the port's own copies of the configuration
+dataclasses (``config``), dates, grids and constants."""
 
 from topotpu_torch.core.device import (  # noqa: F401
     COMPUTE_DTYPE,

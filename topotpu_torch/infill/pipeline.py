@@ -20,10 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from topotpu.core.config import PPCAParams
+from topotpu_torch.core.config import PPCAParams
 from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.geo.distance import pairwise_great_circle_km
 from topotpu_torch.interp.convert import to_tensor
+from topotpu_torch.oracle.numpy_ref import haversine_km
 from topotpu_torch.stats.ppca import ppca_impute, variance_adjust
 
 
@@ -72,8 +73,6 @@ def select_predictors(
         vx = np.maximum(sxx / safe_n - (sx / safe_n) ** 2, 1e-12)
         score = np.abs(np.where(n < 30, 0.0, cov / np.sqrt(vx * vx.T)))
         if stn_lon is not None:
-            from topotpu.oracle.numpy_ref import haversine_km
-
             d = haversine_km(
                 stn_lon[:, None], stn_lat[:, None],
                 stn_lon[None, :], stn_lat[None, :],

@@ -1,11 +1,11 @@
-"""Post-infill QA (copy of ``topotpu.infill.post_infill``, which is numpy but
-sits in a package whose ``__init__`` imports JAX).
+"""Post-infill QA (the port's own copy of the JAX package's
+``infill/post_infill.py``; numpy on the host).
 
 After PPCA imputation, (a) imputed segments are variance-adjusted
 (``topotpu_torch.stats.ppca.variance_adjust``), and (b) the infilled series
 are scanned for changepoints introduced by imputation, with the C++ SNHT
 binary-segmentation core of the homogenization stage
-(``topotpu.homog.pha``, built with ``g++`` at first use), and stations whose
+(``topotpu_torch.homog.pha``, built with ``g++`` at first use), and stations whose
 imputed data manufactures a break are flagged BAD. This runs on the host.
 """
 
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from topotpu.homog.pha import detect_breaks, monthly_means
+from topotpu_torch.homog.pha import detect_breaks, monthly_means
 
 
 def changepoint_flags(

@@ -2,11 +2,6 @@
 (variogram parameters, cross-validation, nnghs optimisation) on torch
 tensors, and the infill cross-validation."""
 
-from topotpu_torch.interp.normals import (  # noqa: F401
-    NormalsResult,
-    krig_normals,
-    krig_normals_and_gains,
-)
 from topotpu_torch.interp.point import (  # noqa: F401
     PACK_SENTINEL,
     FlatTileResult,

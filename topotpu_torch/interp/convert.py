@@ -5,7 +5,7 @@ whose fields are numpy arrays (``np.asarray`` of each JAX field), or any
 NamedTuple with the same field names. Float fields become ``dtype`` tensors
 (float32 by default), the masks bool tensors, all on ``device``. Station
 variogram parameters and the other tile inputs are this system's weights;
-``InterpParams`` is shared unchanged. The station-side stages take their
+``InterpParams`` has the same fields in both packages. The station-side stages take their
 numpy station arrays through ``to_tensor`` too.
 """
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from topotpu.core.config import TopoConfig
+from topotpu_torch.core.config import TopoConfig
 from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.interp.point import PairTileInputs, TileInputs, VarFields
 

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from topotpu.core.config import InterpParams, VariogramParams
+from topotpu_torch.core.config import InterpParams, VariogramParams
 from topotpu_torch.geo.distance import pairwise_km_from_xyz, unit_xyz
 from topotpu_torch.geo.neighbors import distance_weights, select_neighbors
 from topotpu_torch.interp.convert import to_tensor

@@ -9,9 +9,10 @@ pads each month to ``dpm`` day slots, so station anomalies arrive as
 validity, the whole year of every variable at once).
 
 Dispatch follows the device of the inputs and nothing else. On CUDA tensors
-the normals chain launches ``kernels/csrc/krig_normals.cu`` and the daily
-step launches ``kernels/csrc/scatter_daily.cu``; on CPU tensors both take
-their plain torch versions. ``InterpParams.use_pallas`` is read by nothing
+the normals chain launches ``kernels/csrc/krig_normals.cu`` (all 12 x V
+systems of a step in one launch) and the daily step launches
+``kernels/csrc/scatter_daily.cu``; on CPU tensors both take their plain
+torch versions. ``InterpParams.use_pallas`` is read by nothing
 in the port, and there is no other switch.
 """
 
@@ -22,12 +23,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from topotpu.core.config import InterpParams
-from topotpu.core.dates import DaysMetadata
+from topotpu_torch.core.config import InterpParams
+from topotpu_torch.core.dates import DaysMetadata
 from topotpu_torch.geo.distance import pairwise_great_circle_km, unit_xyz
 from topotpu_torch.geo.neighbors import Neighborhood, select_neighbors
 from topotpu_torch.interp.anoms import anomaly_gain_rows
-from topotpu_torch.interp.normals import krig_normals, krig_normals_and_gains
+from topotpu_torch.kernels.krig_normals import (
+    cell_table,
+    krig_normals_indexed,
+    station_table,
+    system_columns,
+)
 from topotpu_torch.kernels.scatter_daily import scatter_daily
 
 PACK_SENTINEL = -32768  # int16 fill for non-ok cells
@@ -125,6 +131,37 @@ def _local_xy_km(lon, lat, ref_lat_deg):
     return lon * kx, lat * 111.32
 
 
+def tile_tables(inputs: TileInputs, all_vars) -> tuple[torch.Tensor, torch.Tensor]:
+    """The station table (S, 19 + 48 V) and the cell table (C, 16) of one
+    tile, as ``krig_normals_indexed`` reads them. x/y are local km offsets
+    at the station pool's mean latitude."""
+    ref_lat = torch.mean(inputs.stn_lat)
+    stn_x, stn_y = _local_xy_km(inputs.stn_lon, inputs.stn_lat, ref_lat)
+    cell_x, cell_y = _local_xy_km(inputs.cell_lon, inputs.cell_lat, ref_lat)
+    table = station_table(
+        inputs.stn_elev, inputs.stn_tdi, stn_x, stn_y,
+        unit_xyz(inputs.stn_lon, inputs.stn_lat), inputs.stn_lst,
+        [(var.norm, var.vario) for var in all_vars],
+    )
+    return table, cell_table(inputs.cell_elev, inputs.cell_tdi, cell_x, cell_y,
+                             inputs.cell_lst)
+
+
+def tile_neighborhoods(inputs: TileInputs, k: int, shared_validity: bool) -> list:
+    """The tile's k-neighbourhoods from one exact distance matrix: one for
+    every month with ``shared_validity``, else one a month."""
+    d_all = pairwise_great_circle_km(
+        inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat
+    )
+    return [
+        select_neighbors(
+            inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat,
+            inputs.stn_valid[:, m], k=k, dist_matrix=d_all,
+        )
+        for m in ((0,) if shared_validity else range(12))
+    ]
+
+
 def _interp_tile_multi(
     inputs: TileInputs,
     extra_vars: tuple,
@@ -135,10 +172,16 @@ def _interp_tile_multi(
     Returns one TileResult per variable.
 
     Shared across variables: the (C, S) distance matrix, per-month top-k
-    selection, the single gather of the station feature table, the anomaly
-    gains (geometry only) and the daily contraction. Per variable: the
-    kriging solve and its slice of the daily contraction."""
-    C = inputs.cell_lon.shape[0]
+    selection, the station table, the anomaly gains (geometry only) and the
+    daily contraction. Per variable: the kriging solve and its slice of the
+    daily contraction.
+
+    All kriging systems go through ``krig_normals_indexed``, which reads the
+    neighbourhoods as ``select_neighbors`` leaves them and gathers from the
+    station table itself. With one neighbourhood size for every variable
+    (the usual case) the 12 x V systems take one call; with per-variable
+    sizes (``k_per_var`` / ``ka_per_var``) each variable's 12 systems take
+    a call of their own, masked beyond that variable's k."""
     S = inputs.stn_lon.shape[0]
     dtype = inputs.cell_lon.dtype
     all_vars = (
@@ -147,54 +190,9 @@ def _interp_tile_multi(
     V = len(all_vars)
     k_req = params.k_neighbors
 
-    stn_xyz = unit_xyz(inputs.stn_lon, inputs.stn_lat)  # (S, 3)
-    # x-offset reference latitude: the station pool's mean latitude
-    ref_lat = torch.mean(inputs.stn_lat)
-    stn_x, stn_y = _local_xy_km(inputs.stn_lon, inputs.stn_lat, ref_lat)
-    cell_x, cell_y = _local_xy_km(inputs.cell_lon, inputs.cell_lat, ref_lat)
+    table, cell_tab = tile_tables(inputs, all_vars)
+    nbrs = tile_neighborhoods(inputs, k_req, shared_validity)
 
-    # One station feature table, one gather per distinct neighbourhood.
-    # Layout: [elev, tdi, x_km, y_km, xyz(3), lst(12),
-    #          per-var: norm(12) + vario(12x3 month-major)].
-    table = torch.cat(
-        [
-            inputs.stn_elev.to(dtype)[:, None],
-            inputs.stn_tdi.to(dtype)[:, None],
-            stn_x[:, None],
-            stn_y[:, None],
-            stn_xyz,
-            inputs.stn_lst.to(dtype),
-        ]
-        + [
-            torch.cat([var.norm.to(dtype), var.vario.to(dtype).reshape(S, 36)], dim=1)
-            for var in all_vars
-        ],
-        dim=1,
-    )
-    vbase = 19  # columns before the per-variable blocks
-
-    def _cols(G):
-        """Column accessors over a gathered (C, k, F) table block."""
-        return dict(
-            elev=G[..., 0], tdi=G[..., 1], x=G[..., 2], y=G[..., 3],
-            xyz=G[..., 4:7],
-            lst=lambda m: G[..., 7 + m],
-            norm=lambda v, m: G[..., vbase + 48 * v + m],
-            vario=lambda v, m: G[
-                ..., vbase + 48 * v + 12 + 3 * m : vbase + 48 * v + 15 + 3 * m
-            ],
-        )
-
-    # exact distance matrix, hoisted across months
-    d_all = pairwise_great_circle_km(
-        inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat
-    )
-
-    normals = [[] for _ in range(V)]
-    ses = [[] for _ in range(V)]
-    oks = [[] for _ in range(V)]
-    varios = [[] for _ in range(V)]
-    gains_by_month = []  # [m] -> [(gains, nbr)] per variable
     # Per-variable neighbourhood sizes: selection happens once at k_req (the
     # max over variables); each variable masks the slots beyond its own k.
     # top-k output is distance-sorted, so masked trailing slots are inert.
@@ -215,8 +213,6 @@ def _interp_tile_multi(
     if max(kvs) > k_req:
         raise ValueError("k_per_var entries must be <= k_neighbors")
     uniform = kvs == (k_req,) * V and len(set(kas)) == 1
-    ka = kas[0]
-    cell_cov_anom = torch.stack([inputs.cell_elev, cell_x, cell_y], dim=-1)
     solve_kw = dict(
         weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
@@ -227,94 +223,49 @@ def _interp_tile_multi(
             idx=nbr.idx[:, :n], dist=nbr.dist[:, :n], mask=nbr.mask[:, :n]
         )
 
-    def _anom_cov(cols, n):
-        return torch.stack(
-            [cols["elev"][:, :n], cols["x"][:, :n], cols["y"][:, :n]], dim=-1
-        )
+    anom_cols = system_columns(table, cell_tab, 0, 0)  # month and variable play no part
 
-    nbr = None
-    cols = None
-    for m in range(12):
-        if nbr is None or not shared_validity:
-            nbr = select_neighbors(
-                inputs.cell_lon, inputs.cell_lat, inputs.stn_lon,
-                inputs.stn_lat, inputs.stn_valid[:, m], k=k_req,
-                dist_matrix=d_all,
-            )
-            cols = _cols(table[nbr.idx])
+    def _gains_of(nbr, n):
+        """Gain rows of the n-slot prefix of a neighbourhood (plain torch),
+        from the three anomaly covariates of its stations."""
+        nbr_n = _prefix(nbr, n)
+        return anomaly_gain_rows(
+            nbr_n.dist, nbr_n.mask, anom_cols["acov"][nbr_n.idx], anom_cols["cell_acov"],
+            weight_kernel=params.weight_kernel, ridge=params.ridge,
+        ), nbr_n
 
-        # Trend covariates: elev, tdi, lst_m (location enters through the
-        # moving-window weights, as in the variogram-parameter fits).
-        nbr_cov = torch.stack([cols["elev"], cols["tdi"], cols["lst"](m)], dim=-1)
-        cell_cov = torch.stack(
-            [inputs.cell_elev, inputs.cell_tdi, inputs.cell_lst[:, m]], dim=-1
-        )
-        krig_args = lambda v, mask: (  # noqa: E731
-            nbr.dist, mask, cols["xyz"], nbr_cov, cell_cov,
-            cols["norm"](v, m), cols["vario"](v, m),
-        )
+    normals = [[None] * 12 for _ in range(V)]
+    ses = [[None] * 12 for _ in range(V)]
+    oks = [[None] * 12 for _ in range(V)]
+    varios = [[None] * 12 for _ in range(V)]
+    idx, dist, mask = (torch.stack([getattr(n, f) for n in nbrs])
+                       for f in ("idx", "dist", "mask"))
 
-        if not uniform:
-            slots = torch.arange(k_req, device=nbr.mask.device)
-            results_m = [
-                krig_normals(
-                    *krig_args(
-                        v,
-                        nbr.mask & (slots < kvs[v])[None, :]
-                        if kvs[v] < k_req else nbr.mask,
-                    ),
-                    **solve_kw,
-                )
-                for v in range(V)
-            ]
-            if m == 0 or not shared_validity:
-                gains_cache = {}
-                for ka_v in sorted(set(kas)):
-                    nbr_v = _prefix(nbr, ka_v)
-                    gains_cache[ka_v] = (
-                        anomaly_gain_rows(
-                            nbr_v.dist, nbr_v.mask, _anom_cov(cols, ka_v),
-                            cell_cov_anom, weight_kernel=params.weight_kernel,
-                            ridge=params.ridge,
-                        ),
-                        nbr_v,
-                    )
-                gains_cache0 = gains_cache
-            else:
-                gains_cache = gains_cache0
-            gains_by_month.append([gains_cache[kas[v]] for v in range(V)])
-        else:
-            if ka == k_req:
-                # var 0's normals and the shared gains come from one kernel;
-                # with month-invariant neighbourhoods only month 0 needs the
-                # gains, later months reuse them
-                if m == 0 or not shared_validity:
-                    res, gains = krig_normals_and_gains(
-                        *krig_args(0, nbr.mask), _anom_cov(cols, k_req),
-                        cell_cov_anom, **solve_kw,
-                    )
-                    gains0 = gains
-                else:
-                    res = krig_normals(*krig_args(0, nbr.mask), **solve_kw)
-                    gains = gains0
-                results_m = [res]
-                nbr_a = nbr
-            else:
-                results_m = []
-                nbr_a = _prefix(nbr, ka)
-                gains = anomaly_gain_rows(
-                    nbr_a.dist, nbr_a.mask, _anom_cov(cols, ka), cell_cov_anom,
-                    weight_kernel=params.weight_kernel, ridge=params.ridge,
-                )
-            for v in range(len(results_m), V):
-                results_m.append(krig_normals(*krig_args(v, nbr.mask), **solve_kw))
-            gains_by_month.append([(gains, nbr_a)] * V)
+    def _solve(pairs, mask):
+        """One call for the systems ``pairs``; fills their result slots and
+        returns the neighbourhoods' gain rows (at ``mask``)."""
+        head, gains = krig_normals_indexed(idx, dist, mask, table, cell_tab, pairs,
+                                           shared_validity, **solve_kw)
+        se = torch.sqrt(torch.clamp(head[..., 1], min=0.0))
+        for p, (m, v) in enumerate(pairs):
+            normals[v][m] = head[p, :, 0]
+            ses[v][m] = se[p]
+            oks[v][m] = (head[p, :, 2] > 0.5) & inputs.cell_mask
+            varios[v][m] = head[p, :, 4:7]
+        return gains
 
-        for v, res_v in enumerate(results_m):
-            normals[v].append(res_v.normal)
-            ses[v].append(res_v.se)
-            oks[v].append(res_v.ok & inputs.cell_mask)
-            varios[v].append(res_v.vario)
+    if uniform:
+        gains = _solve([(m, v) for m in range(12) for v in range(V)], mask)
+        gains_by_ka = {kas[0]: [(gains[i], nbr) if kas[0] == k_req else _gains_of(nbr, kas[0])
+                                for i, nbr in enumerate(nbrs)]}
+    else:
+        slots = torch.arange(k_req, device=table.device)
+        for v in range(V):
+            _solve([(m, v) for m in range(12)], mask & (slots < kvs[v]))
+        gains_by_ka = {ka: [_gains_of(nbr, ka) for nbr in nbrs] for ka in sorted(set(kas))}
+    # [m] -> [(gains, nbr)] per variable; variables of one ka share the tensors
+    gains_by_month = [[gains_by_ka[kas[v]][0 if shared_validity else m] for v in range(V)]
+                      for m in range(12)]
 
     return _finish_tile_multi(
         inputs, all_vars, shared_validity, normals, ses, oks, varios,

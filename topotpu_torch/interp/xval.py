@@ -16,11 +16,12 @@ neighbourhood by index (``select_neighbors(exclude_idx=...)``). That is the
 reference's remove-by-station rule, and it removes only the station itself:
 a second station at identical coordinates (a twin) stays in the pool and
 enters the neighbourhood at distance 0 with the largest weight, exactly as
-in the JAX package. Each month's normals run through
-``interp.normals.krig_normals`` (the CUDA ``krig_normals`` kernel on the
-card), 12 launches per x-val run. Inputs are numpy station arrays; they go
-to ``device`` once, each month's results stay there, and one transfer after
-the loop brings them back for the numpy scoring, which is the JAX package's.
+in the JAX package. The 12 months' normals run through one call of
+``kernels.krig_normals.krig_normals_indexed`` (the CUDA ``krig_normals``
+kernel on the card, one launch per x-val run), the stations being both the
+station table's rows and the cells. Inputs are numpy station arrays; they go
+to ``device`` once, the results stay there, and one transfer brings them
+back for the numpy scoring, which is the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,19 +32,19 @@ import types
 import numpy as np
 import torch
 
-from topotpu.core.config import InterpParams, PPCAParams
+from topotpu_torch.core.config import InterpParams, PPCAParams
 from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.geo.distance import unit_xyz
 from topotpu_torch.geo.neighbors import select_neighbors
 from topotpu_torch.interp.anoms import anomaly_gain_rows, predict_daily_gathered
 from topotpu_torch.interp.convert import to_tensor
-from topotpu_torch.interp.normals import krig_normals
 from topotpu_torch.interp.point import (
     _local_xy_km,
     group_days_by_month,
     month_layout,
     ungroup_days,
 )
+from topotpu_torch.kernels.krig_normals import cell_table, krig_normals_indexed, station_table
 
 
 @dataclasses.dataclass
@@ -62,23 +63,38 @@ def _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, st
                 valid=to_tensor(stn_valid, device, torch.bool))
 
 
-def _loo_month(st, xyz, m, params: InterpParams):
-    """Month m's leave-one-out neighbourhoods and kriged normals at every
-    station."""
-    lon, lat, elev, tdi = st["lon"], st["lat"], st["elev"], st["tdi"]
-    lst_m, norm_m, vario_m = st["lst"][:, m], st["norm"][:, m], st["vario"][:, m, :]
-    nbr = select_neighbors(lon, lat, lon, lat, st["valid"][:, m], k=params.k_neighbors,
-                           exclude_idx=torch.arange(lon.shape[0], device=lon.device))
-    idx = nbr.idx
-    res = krig_normals(
-        nbr.dist, nbr.mask, xyz[idx],
-        torch.stack([elev[idx], tdi[idx], lst_m[idx]], dim=-1),
-        torch.stack([elev, tdi, lst_m], dim=-1),
-        norm_m[idx], vario_m[idx],
-        weight_kernel=params.weight_kernel, ridge=params.ridge,
+def _loo_systems(st, k: int):
+    """Every month's leave-one-out neighbourhoods and the arguments of
+    ``krig_normals_indexed`` that solve them: 12 neighbourhoods (one a month,
+    by that month's validity, a station never its own neighbour) and the 12
+    systems of the one variable, the stations being both the table's rows
+    and the cells. Returns the neighbourhoods and (idx, dist, mask, table,
+    cells, pairs, shared)."""
+    lon, lat = st["lon"], st["lat"]
+    ref_lat = torch.mean(lat)
+    x, y = _local_xy_km(lon, lat, ref_lat)
+    table = station_table(st["elev"], st["tdi"], x, y, unit_xyz(lon, lat), st["lst"],
+                          [(st["norm"], st["vario"])])
+    cells = cell_table(st["elev"], st["tdi"], x, y, st["lst"])
+    own = torch.arange(lon.shape[0], device=lon.device)
+    nbrs = [select_neighbors(lon, lat, lon, lat, st["valid"][:, m], k=k, exclude_idx=own)
+            for m in range(12)]
+    return nbrs, (
+        torch.stack([n.idx for n in nbrs]), torch.stack([n.dist for n in nbrs]),
+        torch.stack([n.mask for n in nbrs]), table, cells, [(m, 0) for m in range(12)], False,
+    )
+
+
+def _loo_normals(st, params: InterpParams):
+    """Every month's leave-one-out kriged normals at every station, in one
+    call of ``krig_normals_indexed``. Returns the neighbourhoods, the normals
+    (12, S) and the ok flags (12, S)."""
+    nbrs, args = _loo_systems(st, params.k_neighbors)
+    head, _ = krig_normals_indexed(
+        *args, weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
     )
-    return nbr, res
+    return nbrs, head[..., 0], head[..., 2] > 0.5
 
 
 def xval_interp_normals(
@@ -91,14 +107,9 @@ def xval_interp_normals(
     """
     st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                    stn_valid)
-    xyz = unit_xyz(st["lon"], st["lat"])
-    errs, oks = [], []
-    for m in range(12):
-        _, res = _loo_month(st, xyz, m, params)
-        errs.append(res.normal - st["norm"][:, m])
-        oks.append(res.ok)
-    errs = torch.stack(errs, dim=1).cpu().numpy()
-    oks = torch.stack(oks, dim=1).cpu().numpy()
+    _, normal, ok = _loo_normals(st, params)
+    errs = (normal.T - st["norm"]).cpu().numpy()
+    oks = ok.T.cpu().numpy()
 
     # score only entries valid this month AND solved (a failed solve's
     # normal grades solve failure, not interpolation skill), with finite
@@ -139,7 +150,6 @@ def xval_interp_daily(
     """
     st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                    stn_valid)
-    xyz = unit_xyz(st["lon"], st["lat"])
     layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
     anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
     anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
@@ -148,9 +158,9 @@ def xval_interp_daily(
     sx, sy = _local_xy_km(st["lon"], st["lat"], ref_lat)
     ka = min(params.k_neighbors_anom, params.k_neighbors)
 
-    preds, oks = [], []
-    for m in range(12):
-        nbr, res = _loo_month(st, xyz, m, params)
+    nbrs, normal, ok = _loo_normals(st, params)
+    preds = []
+    for m, nbr in enumerate(nbrs):
         idx_a, dist_a, mask_a = nbr.idx[:, :ka], nbr.dist[:, :ka], nbr.mask[:, :ka]
         g = anomaly_gain_rows(
             dist_a, mask_a,
@@ -158,11 +168,10 @@ def xval_interp_daily(
             torch.stack([st["elev"], sx, sy], dim=-1),
             weight_kernel=params.weight_kernel, ridge=params.ridge,
         )
-        preds.append(res.normal[:, None] + predict_daily_gathered(g, idx_a, mask_a,
-                                                                  anoms_g[m]))
-        oks.append(res.ok)
+        preds.append(normal[m][:, None] + predict_daily_gathered(g, idx_a, mask_a,
+                                                                 anoms_g[m]))
     pred_g = torch.stack(preds, dim=1).cpu().numpy()  # (S, 12, dpm)
-    oks = torch.stack(oks, dim=1).cpu().numpy()
+    oks = ok.T.cpu().numpy()
 
     pred = ungroup_days(pred_g, layout)  # (S, T)
     truth = np.asarray(stn_norm)[:, month_idx] + np.asarray(stn_anoms)

@@ -1,1 +1,1 @@
-"""Torch builders of tile inputs (worlds and files stay in ``topotpu.io``)."""
+"""The synthetic world and the tile inputs and station arrays made from it."""

@@ -1,40 +1,68 @@
-// Regression-kriging normals + anomaly-GWR gain rows, one warp per cell.
+// Regression-kriging normals + anomaly-GWR gain rows, one warp per cell and
+// neighbourhood, every (month, variable) system of the cell in one launch.
 //
 // Replaces: topotpu/kernels/pallas_krig.py::krig_normals_fused (body
-// _normals_kernel). Same inputs, same (8 + k, B) output rows:
-//   [normal, variance, ok, trend, nugget, psill, range, 0], then k gain rows.
-// Per cell it runs the chain of topotpu/interp/normals.py::krig_normals:
+// _normals_kernel). Per system it runs the chain of
+// topotpu/interp/normals.py::krig_normals:
 // adaptive distance weights -> point-centred, weighted-std-scaled design ->
 // (q+1)^2 WLS trend with a trace-scaled ridge -> residuals -> distance-weighted
 // nugget/psill/range -> pair distances from unit-sphere xyz (exact asinf) ->
 // exponential covariance (masked rows folded to identity, plus jitter) ->
 // Cholesky and two triangular solves (c0 and ones) -> SK->OK reduction ->
 // normal = trend + lambda . resid; then the gain row w * (X_a A_a^-1 e0).
+// Head values per system: [normal, variance, ok, trend, nugget, psill, range, 0].
 //
-// What bounds it on an H100: not device memory (about 13k + 16 floats read
-// and 8 + k written per cell) but the dependent chain of the k-step
-// factorisation and the 2k solve steps, each a shared-memory read, a shuffle
-// and a few FMAs: latency. The design hides latency with many independent
-// cells in flight: one warp owns one cell's k x k system in shared memory
-// (row stride k + 1, so the 32 lanes hit 32 banks), lanes own rows (two rows
-// per lane above k = 32), reductions over the neighbourhood are warp
-// shuffles, and the tiny p x p WLS systems are solved by lane 0 in shared
-// memory. Blocks hold as many warps as fit in 48 KB of shared memory (8 at
-// k <= 32, 2 at k = 64). Exact fp32 throughout: no tensor cores, no TF32, no
-// fast-math intrinsics.
+// What bounds it on an H100: not device memory (a cell's neighbourhood is
+// 9 k bytes in, 4 k + 32 P bytes out for P systems, and the station table is
+// a few hundred KB that stays in L2) but instruction throughput and latency on
+// the dependent chain of k factorisation steps. The design spends as few
+// instruction slots a system as it can and shares all it can between systems:
 //
-// The covariance assembly, the factorisation with its two solves and the
-// masked OK sums are the shared core in krig_core.cuh, which ok_solve.cu
-// calls too.
+//   * One launch covers all P systems of a tile step. The warp that owns a
+//     (neighbourhood, cell) computes once what does not depend on the month
+//     or the variable: the distance weights, the k (k - 1) / 2 pair distances
+//     (sqrtf + asinf each; kept in shared memory in the order the assembly
+//     reads them), the system-invariant design columns, and the gain rows.
+//     Per system it rebuilds only the varying design column (lst_m), the
+//     normal equations, the covariance, the factorisation and the solves.
+//   * The indexed entry reads the neighbourhood as select_neighbors leaves
+//     it, (N, C, k) row-major idx / dist / mask: a warp's 32 lanes read 32
+//     consecutive slots of one cell, one 128-byte line (256 for int64
+//     indices, 32 for the mask). Each lane then gathers its station's
+//     columns straight from the (S, F) table through the read-only path: the
+//     table is at most a few MB, so it lives in L2 and its hot rows in L1,
+//     and a row's columns are consecutive, so a lane's loads walk one or two
+//     cache lines. Staging rows in shared memory, by cp.async or TMA, would
+//     add a copy for no reuse (each column is read once per system by one
+//     lane), and TMA moves dense tiles, not rows picked by a per-lane index.
+//     Outputs: head (P, C, 8), one 32-byte sector a (system, cell) written by
+//     lanes 0-7; gains (N, C, k), a 128-byte line a cell.
+//   * The factorisation keeps the matrix in registers, a row a lane
+//     (krig_core.cuh): every lane does the same k - 1 - j updates at column
+//     j with compile-time register indices, one warp barrier a column. The
+//     p x p WLS systems are solved redundantly by every lane in registers
+//     (the butterfly sums leave A and b on all lanes): no shared memory, no
+//     barrier, no waiting on lane 0.
+//   * Blocks are 4 warps; shared memory a warp is 7 KB at k <= 32 and
+//     26.4 KB above (limit raised with cudaFuncSetAttribute), so the
+//     register file, not shared memory, sets the resident warps.
 //
-// C interface: krig_normals_launch(...) launches on the given stream and
-// returns cudaGetLastError(). Inputs are (rows, B) row-major float32, with the
-// cell index contiguous: xyz3k (3k), dist (k), mask (k, 0/1), covs (q k),
-// cell (8: trend rows 0..q-1, anomaly rows q..q+qa-1), norm (k), vario (3k),
-// acovs (qa k). 1 <= k <= 64, q + qa <= 8.
+// Exact fp32 throughout: no tensor cores, no TF32, no fast-math intrinsics.
+// The solve core (pair distances, assembly, factorisation with its two
+// solves, masked OK sums) is krig_core.cuh, which ok_solve.cu uses too.
+//
+// The C entry launches on the given stream and returns cudaGetLastError():
+//   krig_normals_indexed_launch  idx (N, C, k) int32 or int64, dist (N, C, k)
+//       float32, mask (N, C, k) bytes, table (S, F) float32 with columns
+//       [elev, tdi, x_km, y_km, xyz(3), lst(12), per variable: norm(12),
+//       vario(12 x 3)], cell (C, 16) float32 [elev, tdi, x_km, y_km, lst(12)],
+//       the systems as host arrays of months and variables. With shared != 0,
+//       N = 1 and every system uses that neighbourhood; else neighbourhood n
+//       serves the systems of month n. 1 <= k <= 64.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 
 #include "krig_core.cuh"
 
@@ -43,70 +71,94 @@ namespace {
 using krig::warp_max;
 using krig::warp_sum;
 
-constexpr int MAXP = 8;  // largest (covariates + intercept) of a WLS design
+constexpr int HEAD = 8;          // head values a system
+constexpr int MAX_SYSTEMS = 96;  // systems a launch (12 months x 8 variables)
 
-// In-place Cholesky solve of a p x p SPD system held in shared memory (lower
-// triangle of A, row stride MAXP); b is overwritten with x. One thread.
-__device__ void solve_spd_small(float* A, float* b, int p) {
-  for (int i = 0; i < p; ++i) {
-    for (int j = 0; j <= i; ++j) {
-      float s = A[i * MAXP + j];
-      for (int t = 0; t < j; ++t) s -= A[i * MAXP + t] * A[j * MAXP + t];
-      A[i * MAXP + j] = (i == j) ? sqrtf(fmaxf(s, 1e-20f)) : s / A[j * MAXP + j];
+// columns of the station table and of the cell table
+constexpr int T_ELEV = 0, T_TDI = 1, T_X = 2, T_Y = 3, T_XYZ = 4, T_LST = 7,
+              T_VAR = 19, T_VAR_COLS = 48, T_VARIO = 12;
+constexpr int C_ELEV = 0, C_TDI = 1, C_X = 2, C_Y = 3, C_LST = 4, C_COLS = 16;
+
+struct Systems {
+  int n;
+  int month[MAX_SYSTEMS];
+  int var[MAX_SYSTEMS];
+};
+
+__device__ __forceinline__ constexpr int tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+// In-place Cholesky solve of a p x p SPD system held in registers (lower
+// triangle of A, packed by rows); b is overwritten with x. Every lane solves
+// the same system.
+template <int MAXP>
+__device__ __forceinline__ void solve_spd_small(
+    float (&A)[MAXP * (MAXP + 1) / 2], float (&b)[MAXP], int p) {
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    if (i < p) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        float s = A[tri(i, j)];
+#pragma unroll
+        for (int t = 0; t < j; ++t) s -= A[tri(i, t)] * A[tri(j, t)];
+        A[tri(i, j)] = (i == j) ? sqrtf(fmaxf(s, 1e-20f)) : s / A[tri(j, j)];
+      }
     }
   }
-  for (int i = 0; i < p; ++i) {
-    float s = b[i];
-    for (int t = 0; t < i; ++t) s -= A[i * MAXP + t] * b[t];
-    b[i] = s / A[i * MAXP + i];
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) {
+    if (i < p) {
+      float s = b[i];
+#pragma unroll
+      for (int t = 0; t < i; ++t) s -= A[tri(i, t)] * b[t];
+      b[i] = s / A[tri(i, i)];
+    }
   }
-  for (int i = p - 1; i >= 0; --i) {
-    float s = b[i];
-    for (int t = i + 1; t < p; ++t) s -= A[t * MAXP + i] * b[t];
-    b[i] = s / A[i * MAXP + i];
+#pragma unroll
+  for (int i = MAXP - 1; i >= 0; --i) {
+    if (i < p) {
+      float s = b[i];
+#pragma unroll
+      for (int t = i + 1; t < MAXP; ++t)
+        if (t < p) s -= A[tri(t, i)] * b[t];
+      b[i] = s / A[tri(i, i)];
+    }
   }
 }
 
-// Centred, weighted-std-scaled design: X[0] = 1, X[i] = (cov_i - cell_i) /
-// (weighted std + 1e-6) for the nq covariate rows of cov (rows i*k + slot).
-template <int R>
-__device__ __forceinline__ void design(
-    const float* __restrict__ cov, const float* __restrict__ cell, int nq,
-    int k, int B, int c, int lane, const float (&w)[R], float wsum,
-    float (&X)[MAXP][R]) {
+// One centred, weighted-std-scaled design column: (cov - cell value) /
+// (weighted std + 1e-6) over this lane's slots; cov(r) is read for slots < k.
+template <int R, class Cov>
+__device__ __forceinline__ void design_col(Cov cov, float cv, int k, int lane,
+                                           const float (&w)[R], float wsum,
+                                           float (&x)[R]) {
+  float dc[R];
+  float sw = 0.0f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) X[0][r] = 1.0f;
-#pragma unroll
-  for (int i = 1; i < MAXP; ++i) {
-    if (i <= nq) {
-      const float cv = cell[(i - 1) * B + c];
-      float dc[R];
-      float sw = 0.0f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int s = lane + 32 * r;
-        dc[r] = s < k ? cov[((i - 1) * k + s) * B + c] - cv : 0.0f;
-        sw += w[r] * dc[r];
-      }
-      const float mean = warp_sum(sw) / wsum;
-      float sv = 0.0f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float e = dc[r] - mean;
-        sv += w[r] * e * e;
-      }
-      const float scale = sqrtf(warp_sum(sv) / wsum) + 1e-6f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) X[i][r] = dc[r] / scale;
-    }
+  for (int r = 0; r < R; ++r) {
+    dc[r] = lane + 32 * r < k ? cov(r) - cv : 0.0f;
+    sw += w[r] * dc[r];
   }
+  const float mean = warp_sum(sw) / wsum;
+  float sv = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float e = dc[r] - mean;
+    sv += w[r] * e * e;
+  }
+  const float scale = sqrtf(warp_sum(sv) / wsum) + 1e-6f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) x[r] = dc[r] / scale;
 }
 
-// Lane 0 writes A = X^T W X + (ridge * mean diag + 1e-30) I into sA.
-template <int R>
-__device__ __forceinline__ void normal_eq(
-    const float (&X)[MAXP][R], const float (&w)[R], int p, float ridge,
-    float* sA, int lane) {
+// A = X^T W X + (ridge * mean diag + 1e-30) I, on every lane.
+template <int R, int MAXP>
+__device__ __forceinline__ void normal_eq(const float (&X)[MAXP][R],
+                                          const float (&w)[R], int p,
+                                          float ridge,
+                                          float (&A)[MAXP * (MAXP + 1) / 2]) {
   float diag = 0.0f;
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
@@ -117,244 +169,384 @@ __device__ __forceinline__ void normal_eq(
 #pragma unroll
         for (int r = 0; r < R; ++r) a += w[r] * X[i][r] * X[j][r];
         a = warp_sum(a);
-        if (lane == 0) sA[i * MAXP + j] = a;
+        A[tri(i, j)] = a;
         if (i == j) diag += a;
       }
     }
   }
   const float reg = ridge * (diag / p) + 1e-30f;
-  if (lane == 0)
-    for (int i = 0; i < p; ++i) sA[i * MAXP + i] += reg;
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i)
+    if (i < p) A[tri(i, i)] += reg;
 }
 
-__host__ __device__ constexpr int floats_per_warp(int k) {
-  return k * (k + 1) + 4 * k + MAXP * MAXP + MAXP;
+__device__ __forceinline__ float distance_weight(int kind, float d, float bw,
+                                                 float m) {
+  if (kind == 0) {  // bisquare
+    const float rr = fminf(d / bw, 1.0f);
+    const float b = 1.0f - rr * rr;
+    return fmaxf(b * b, 1e-4f) * m;
+  }
+  if (kind == 1) {  // gaussian
+    const float rb = d / bw;
+    return expf(-0.5f * rb * rb) * m;
+  }
+  return m;  // uniform
 }
 
-template <int R, int WK>
-__global__ void __launch_bounds__(256) krig_normals_kernel(
-    const float* __restrict__ xyz3k, const float* __restrict__ dist,
-    const float* __restrict__ mask, const float* __restrict__ covs,
-    const float* __restrict__ cell, const float* __restrict__ norm,
-    const float* __restrict__ vario, const float* __restrict__ acovs,
-    float* __restrict__ out, int B, int k, int q, int qa, float ridge,
-    float jitter_frac, int min_neighbors) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (c >= B) return;  // whole warps only: no block-level barrier follows
+// The whole chain for one (neighbourhood, cell), all its systems, by one
+// warp. Src says where the inputs lie and where the results go; ws is the
+// warp's workspace (krig::Layout<R>). MAXP - 1 bounds the covariates of a
+// design.
+template <int R, int MAXP, class Src>
+__device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
+                                          int k, int weight_kernel,
+                                          float ridge, float jitter_frac,
+                                          int min_neighbors) {
+  using L = krig::Layout<R>;
+  constexpr int K = L::K;
+  float* sA = ws + L::A;
+  float* sD = ws + L::D;
+  float* scol = ws + L::COL;
+  float* sm = ws + L::M;
 
-  const int LD = k + 1;
-  float* sC = smem + warp * floats_per_warp(k);  // k x k, row stride k + 1
-  float* sx = sC + k * LD;
-  float* sy = sx + k;
-  float* sz = sy + k;
-  float* sm = sz + k;
-  float* sA = sm + k;          // MAXP x MAXP small system
-  float* sb = sA + MAXP * MAXP;  // its right-hand side / solution
-
-  // ---- 1. adaptive-bandwidth distance weights --------------------------
+  // ---- once: adaptive-bandwidth distance weights -------------------------
   float m[R], d[R], w[R];
   float dmax = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int s = lane + 32 * r;
-    m[r] = s < k ? mask[s * B + c] : 0.0f;
-    d[r] = s < k ? dist[s * B + c] : 0.0f;
+    const bool in = lane + 32 * r < k;
+    m[r] = in ? src.mask(r) : 0.0f;
+    d[r] = in ? src.dist(r) : 0.0f;
     dmax = fmaxf(dmax, m[r] > 0.0f ? d[r] : 0.0f);
   }
   const float bw = fmaxf(warp_max(dmax), 1e-3f);
-  float ws = 0.0f;
+  float ws_ = 0.0f;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (WK == 0) {  // bisquare
-      const float rr = fminf(d[r] / bw, 1.0f);
-      const float b = 1.0f - rr * rr;
-      w[r] = fmaxf(b * b, 1e-4f) * m[r];
-    } else if (WK == 1) {  // gaussian
-      const float rb = d[r] / bw;
-      w[r] = expf(-0.5f * rb * rb) * m[r];
-    } else {  // uniform
-      w[r] = m[r];
-    }
-    ws += w[r];
+    w[r] = distance_weight(weight_kernel, d[r], bw, m[r]);
+    ws_ += w[r];
   }
-  const float wsum = warp_sum(ws) + 1e-30f;
+  const float wsum = warp_sum(ws_) + 1e-30f;
 
-  // ---- 2-4. GWR trend: design, WLS solve, residuals ---------------------
-  float X[MAXP][R];
-  const int p = q + 1;
-  design<R>(covs, cell, q, k, B, c, lane, w, wsum, X);
-  normal_eq<R>(X, w, p, ridge, sA, lane);
-  float nrm[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int s = lane + 32 * r;
-    nrm[r] = s < k ? norm[s * B + c] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < MAXP; ++i) {
-    if (i < p) {
-      float bi = 0.0f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) bi += w[r] * X[i][r] * nrm[r];
-      bi = warp_sum(bi);
-      if (lane == 0) sb[i] = bi;
-    }
-  }
-  __syncwarp();
-  if (lane == 0) solve_spd_small(sA, sb, p);
-  __syncwarp();
-  const float trend = sb[0];  // x0 = e0 after centring
-  float resid[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float ta = sb[0] * X[0][r];
-#pragma unroll
-    for (int i = 1; i < MAXP; ++i)
-      if (i < p) ta += sb[i] * X[i][r];
-    resid[r] = (nrm[r] - ta) * m[r];
-  }
-
-  // ---- 5. variogram parameters interpolated to the cell -----------------
-  float vn = 0.0f, vp = 0.0f, vr = 0.0f;
+  // ---- once: pair distances, folded (xyz staged in the matrix's place) ---
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = lane + 32 * r;
     if (s < k) {
-      vn += w[r] * vario[s * B + c];
-      vp += w[r] * vario[(k + s) * B + c];
-      vr += w[r] * vario[(2 * k + s) * B + c];
-    }
-  }
-  const float nug = fmaxf(warp_sum(vn) / wsum, 0.0f);
-  const float ps = fmaxf(warp_sum(vp) / wsum, 1e-6f);
-  const float rg = fmaxf(fmaxf(warp_sum(vr) / wsum, 1e-2f), 1e-3f);
-  const float sill = nug + ps;
-
-  // ---- 6-7. pair distances and covariance (lower triangle) -------------
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int s = lane + 32 * r;
-    if (s < k) {
-      sx[s] = xyz3k[s * B + c];
-      sy[s] = xyz3k[(k + s) * B + c];
-      sz[s] = xyz3k[(2 * k + s) * B + c];
+      src.xyz(r, sA[s], sA[K + s], sA[2 * K + s]);
       sm[s] = m[r];
     }
   }
   __syncwarp();
-  const float diag_add = nug + jitter_frac * sill;
-  krig::assemble_exp_cov<R>(
-      sC, LD, k, lane, m, sm, ps, rg, diag_add,
-      [&](int i, int j) { return krig::chord_km(sx, sy, sz, i, j); });
-  float c0[R], y0[R], y1[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    c0[r] = ps * expf(-d[r] / rg) * m[r];
-    y0[r] = c0[r];
-    y1[r] = m[r];
-  }
+  float dd[R];
+  krig::fill_pair_km<R>(sD, k, lane, dd, [&](int i, int j) {
+    return krig::chord_km(sA, sA + K, sA + 2 * K, i, j);
+  });
   __syncwarp();
 
-  // ---- 8. right-looking Cholesky, then forward and back substitution ----
-  krig::chol_two_solves<R>(sC, LD, k, lane, y0, y1);
-
-  // ---- 9-10. SK -> OK reduction and the kriged normal -------------------
-  float sa, su, nv;
-  krig::masked_sums<R>(y0, y1, m, sa, su, nv);
-  const bool ok = nv >= (float)min_neighbors && su > 1e-12f && isfinite(su);
-  const float t = (1.0f - sa) / (ok ? su : 1.0f);
-  float lc = 0.0f, lr = 0.0f;
+  // ---- once: the design columns no system changes ------------------------
+  float X[MAXP][R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float lam = y0[r] + t * y1[r];
-    lc += lam * c0[r];
-    lr += lam * resid[r];
-  }
-  const float var = fmaxf(sill - warp_sum(lc) + t, 0.0f);
-  const float normal = trend + warp_sum(lr);
-  if (lane == 0) {
-    out[0 * B + c] = normal;
-    out[1 * B + c] = var;
-    out[2 * B + c] = ok ? 1.0f : 0.0f;
-    out[3 * B + c] = trend;
-    out[4 * B + c] = nug;
-    out[5 * B + c] = ps;
-    out[6 * B + c] = rg;
-    out[7 * B + c] = 0.0f;
-  }
-
-  // ---- anomaly-GWR gain rows on the same neighbourhood and weights ------
-  __syncwarp();  // all lanes are done reading sb before lane 0 reuses it
-  const int pa = qa + 1;
-  design<R>(acovs, cell + q * B, qa, k, B, c, lane, w, wsum, X);
-  normal_eq<R>(X, w, pa, ridge, sA, lane);
-  if (lane == 0) {
-    for (int i = 0; i < pa; ++i) sb[i] = i == 0 ? 1.0f : 0.0f;
-    solve_spd_small(sA, sb, pa);
-  }
-  __syncwarp();
+  for (int r = 0; r < R; ++r) X[0][r] = 1.0f;
+  const int q = src.q();
+  const int p = q + 1;
+  const int qf = src.q_fixed();
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int s = lane + 32 * r;
-    if (s < k) {
-      float gx = sb[0] * X[0][r];
+  for (int i = 1; i < MAXP; ++i)
+    if (i <= qf)
+      design_col<R>([&](int r) { return src.cov(0, i - 1, r); },
+                    src.cell_cov(0, i - 1), k, lane, w, wsum, X[i]);
+
+  for (int sy = 0; sy < src.n_systems(); ++sy) {
+    if (!src.runs(sy)) continue;  // uniform over the warp
+
+    // ---- GWR trend: varying columns, WLS solve, residuals ---------------
+#pragma unroll
+    for (int i = 1; i < MAXP; ++i)
+      if (i > qf && i <= q)
+        design_col<R>([&](int r) { return src.cov(sy, i - 1, r); },
+                      src.cell_cov(sy, i - 1), k, lane, w, wsum, X[i]);
+    float A[MAXP * (MAXP + 1) / 2], b[MAXP];
+    normal_eq<R, MAXP>(X, w, p, ridge, A);
+    float nrm[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      nrm[r] = lane + 32 * r < k ? src.norm(sy, r) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      b[i] = 0.0f;
+      if (i < p) {
+        float bi = 0.0f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) bi += w[r] * X[i][r] * nrm[r];
+        b[i] = warp_sum(bi);
+      }
+    }
+    solve_spd_small<MAXP>(A, b, p);
+    const float trend = b[0];  // x0 = e0 after centring
+    float resid[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float ta = b[0] * X[0][r];
 #pragma unroll
       for (int i = 1; i < MAXP; ++i)
-        if (i < pa) gx += sb[i] * X[i][r];
-      out[(8 + s) * B + c] = w[r] * gx;
+        if (i < p) ta += b[i] * X[i][r];
+      resid[r] = (nrm[r] - ta) * m[r];
+    }
+
+    // ---- variogram parameters interpolated to the cell -------------------
+    float vn = 0.0f, vp = 0.0f, vr = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (lane + 32 * r < k) {
+        vn += w[r] * src.vario(sy, r, 0);
+        vp += w[r] * src.vario(sy, r, 1);
+        vr += w[r] * src.vario(sy, r, 2);
+      }
+    }
+    const float nug = fmaxf(warp_sum(vn) / wsum, 0.0f);
+    const float ps = fmaxf(warp_sum(vp) / wsum, 1e-6f);
+    const float rg = fmaxf(fmaxf(warp_sum(vr) / wsum, 1e-2f), 1e-3f);
+    const float sill = nug + ps;
+
+    // ---- covariance, factorisation, the two solves -----------------------
+    const float diag_add = nug + jitter_frac * sill;
+    krig::assemble_exp_cov<R>(sA, sD, sm, dd, m, k, lane, ps, rg, diag_add);
+    __syncwarp();
+    float a[R][K];
+    krig::load_rows<R>(sA, lane, a);
+    float c0[R], y0[R], y1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      c0[r] = ps * expf(-d[r] / rg) * m[r];
+      y0[r] = c0[r];
+      y1[r] = m[r];
+    }
+    __syncwarp();  // every lane holds its rows: sA becomes L's place
+    krig::chol_two_solves<R>(a, sA, scol, k, lane, y0, y1);
+
+    // ---- SK -> OK reduction and the kriged normal ------------------------
+    float sa, su, nv;
+    krig::masked_sums<R>(y0, y1, m, sa, su, nv);
+    const bool ok = nv >= (float)min_neighbors && su > 1e-12f && isfinite(su);
+    const float t = (1.0f - sa) / (ok ? su : 1.0f);
+    float lc = 0.0f, lr = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float lam = y0[r] + t * y1[r];
+      lc += lam * c0[r];
+      lr += lam * resid[r];
+    }
+    const float var = fmaxf(sill - warp_sum(lc) + t, 0.0f);
+    const float normal = trend + warp_sum(lr);
+    if (lane < HEAD) {
+      const float h = lane == 0   ? normal
+                      : lane == 1 ? var
+                      : lane == 2 ? (ok ? 1.0f : 0.0f)
+                      : lane == 3 ? trend
+                      : lane == 4 ? nug
+                      : lane == 5 ? ps
+                      : lane == 6 ? rg
+                                  : 0.0f;
+      src.put_head(sy, lane, h);
+    }
+    __syncwarp();  // the back substitution has read L before sA is rebuilt
+  }
+
+  // ---- once: anomaly-GWR gain rows on the same neighbourhood and weights -
+  const int qa = src.qa();
+  const int pa = qa + 1;
+#pragma unroll
+  for (int i = 1; i < MAXP; ++i)
+    if (i <= qa)
+      design_col<R>([&](int r) { return src.acov(i - 1, r); },
+                    src.cell_acov(i - 1), k, lane, w, wsum, X[i]);
+  float A[MAXP * (MAXP + 1) / 2], b[MAXP];
+  normal_eq<R, MAXP>(X, w, pa, ridge, A);
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) b[i] = i == 0 ? 1.0f : 0.0f;
+  solve_spd_small<MAXP>(A, b, pa);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane + 32 * r < k) {
+      float gx = b[0] * X[0][r];
+#pragma unroll
+      for (int i = 1; i < MAXP; ++i)
+        if (i < pa) gx += b[i] * X[i][r];
+      src.put_gain(r, w[r] * gx);
     }
   }
 }
 
-template <int R, int WK>
-cudaError_t launch(const float* xyz3k, const float* dist, const float* mask,
-                   const float* covs, const float* cell, const float* norm,
-                   const float* vario, const float* acovs, float* out, int B,
-                   int k, int q, int qa, float ridge, float jitter_frac,
-                   int min_neighbors, cudaStream_t stream) {
-  const size_t warp_bytes = sizeof(float) * floats_per_warp(k);
-  int wpb = (int)((48 * 1024) / warp_bytes);
-  wpb = wpb < 1 ? 1 : (wpb > 8 ? 8 : wpb);
-  const dim3 block(32 * wpb);
-  const dim3 grid((B + wpb - 1) / wpb);
-  krig_normals_kernel<R, WK><<<grid, block, wpb * warp_bytes, stream>>>(
-      xyz3k, dist, mask, covs, cell, norm, vario, acovs, out, B, k, q, qa,
-      ridge, jitter_frac, min_neighbors);
+// Inputs gathered by index from the station table: q = qa = 3, of which the
+// trend's elev and tdi columns are the same for every system.
+template <int R>
+struct IndexedSrc {
+  const float* trow[R];       // this lane's station rows (slots < k)
+  const float* crow;          // this cell's row of the cell table
+  const float* distp;         // this (neighbourhood, cell)'s k slots
+  const unsigned char* maskp;
+  const Systems* sys;
+  float* head;                // (P, C, 8)
+  float* gainp;               // this (neighbourhood, cell)'s k gains
+  size_t C, c;
+  int lane, nbr, shared;
+
+  __device__ int q() const { return 3; }
+  __device__ int qa() const { return 3; }
+  __device__ int q_fixed() const { return 2; }
+  __device__ int n_systems() const { return sys->n; }
+  __device__ bool runs(int sy) const {
+    return shared || sys->month[sy] == nbr;
+  }
+  __device__ float mask(int r) const {
+    return maskp[lane + 32 * r] ? 1.0f : 0.0f;
+  }
+  __device__ float dist(int r) const { return distp[lane + 32 * r]; }
+  __device__ void xyz(int r, float& x, float& y, float& z) const {
+    x = __ldg(trow[r] + T_XYZ);
+    y = __ldg(trow[r] + T_XYZ + 1);
+    z = __ldg(trow[r] + T_XYZ + 2);
+  }
+  __device__ float cov(int sy, int i, int r) const {
+    return __ldg(trow[r] + (i == 0   ? T_ELEV
+                            : i == 1 ? T_TDI
+                                     : T_LST + sys->month[sy]));
+  }
+  __device__ float cell_cov(int sy, int i) const {
+    return __ldg(crow + (i == 0   ? C_ELEV
+                         : i == 1 ? C_TDI
+                                  : C_LST + sys->month[sy]));
+  }
+  __device__ float acov(int i, int r) const {
+    return __ldg(trow[r] + (i == 0 ? T_ELEV : i == 1 ? T_X : T_Y));
+  }
+  __device__ float cell_acov(int i) const {
+    return __ldg(crow + (i == 0 ? C_ELEV : i == 1 ? C_X : C_Y));
+  }
+  __device__ float norm(int sy, int r) const {
+    return __ldg(trow[r] + T_VAR + T_VAR_COLS * sys->var[sy] + sys->month[sy]);
+  }
+  __device__ float vario(int sy, int r, int j) const {
+    return __ldg(trow[r] + T_VAR + T_VAR_COLS * sys->var[sy] + T_VARIO +
+                 3 * sys->month[sy] + j);
+  }
+  __device__ void put_head(int sy, int i, float v) const {
+    head[((size_t)sy * C + c) * HEAD + i] = v;
+  }
+  __device__ void put_gain(int r, float g) const {
+    gainp[lane + 32 * r] = g;
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(32 * krig::WARPS_PER_BLOCK,
+                                  krig::min_blocks(R))
+krig_normals_indexed_kernel(
+    const void* __restrict__ idx, int idx64, const float* __restrict__ dist,
+    const unsigned char* __restrict__ mask, const float* __restrict__ table,
+    int S, int F, const float* __restrict__ cell,
+    const __grid_constant__ Systems sys, int shared, float* __restrict__ head,
+    float* __restrict__ gains, int N, int C, int k, int weight_kernel,
+    float ridge, float jitter_frac, int min_neighbors) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t g = (size_t)blockIdx.x * krig::WARPS_PER_BLOCK + warp;
+  if (g >= (size_t)N * C) return;  // whole warps only: no block barrier follows
+  const int nbr = (int)(g / C);
+
+  IndexedSrc<R> src;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = lane + 32 * r;
+    long long id = 0;
+    if (s < k)
+      id = idx64 ? static_cast<const long long*>(idx)[g * k + s]
+                 : static_cast<const int*>(idx)[g * k + s];
+    // The contract is 0 <= id < S in every slot, masked or not (the plain
+    // version indexes the table with it and raises otherwise). The clamp only
+    // keeps a stray index from reading outside the table: in a masked slot
+    // the row read is inert, in a valid slot the answer is wrong.
+    id = id < 0 ? 0 : (id >= S ? S - 1 : id);
+    src.trow[r] = table + (size_t)id * F;
+  }
+  src.c = g - (size_t)nbr * C;
+  src.C = C;
+  src.crow = cell + src.c * C_COLS;
+  src.distp = dist + g * k;
+  src.maskp = mask + g * k;
+  src.sys = &sys;
+  src.head = head;
+  src.gainp = gains + g * k;
+  src.lane = lane;
+  src.nbr = nbr;
+  src.shared = shared;
+  krig_cell<R, 4>(src,
+                  reinterpret_cast<float*>(smem4) + warp * krig::Layout<R>::FLOATS,
+                  lane, k, weight_kernel, ridge, jitter_frac, min_neighbors);
+}
+
+bool bad_common(int k, int weight_kernel) {
+  return k < 1 || k > 64 || weight_kernel < 0 || weight_kernel > 2;
+}
+
+template <int R>
+cudaError_t launch_indexed(const void* idx, int idx64, const float* dist,
+                           const unsigned char* mask, const float* table,
+                           int S, int F, const float* cell, const Systems& sys,
+                           int shared, float* head, float* gains, int N, int C,
+                           int k, int weight_kernel, float ridge,
+                           float jitter_frac, int min_neighbors,
+                           cudaStream_t stream) {
+  size_t bytes;
+  cudaError_t err =
+      krig::shared_bytes<R>(krig_normals_indexed_kernel<R>, &bytes);
+  if (err != cudaSuccess) return err;
+  const size_t warps = (size_t)N * C;
+  const dim3 grid((unsigned)((warps + krig::WARPS_PER_BLOCK - 1) /
+                             krig::WARPS_PER_BLOCK));
+  krig_normals_indexed_kernel<R>
+      <<<grid, 32 * krig::WARPS_PER_BLOCK, bytes, stream>>>(
+          idx, idx64, dist, mask, table, S, F, cell, sys, shared, head, gains,
+          N, C, k, weight_kernel, ridge, jitter_frac, min_neighbors);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int krig_normals_launch(
-    const void* xyz3k, const void* dist, const void* mask, const void* covs,
-    const void* cell, const void* norm, const void* vario, const void* acovs,
-    void* out, int B, int k, int q, int qa, float ridge, float jitter_frac,
-    int min_neighbors, int weight_kernel, void* stream) {
-  if (k < 1 || k > 64 || q < 0 || qa < 0 || q + qa > MAXP || q >= MAXP ||
-      qa >= MAXP ||
-      B < 0 || weight_kernel < 0 || weight_kernel > 2)
+extern "C" int krig_normals_indexed_launch(
+    const void* idx, int idx64, const void* dist, const void* mask,
+    const void* table, int S, int F, const void* cell, const int* months,
+    const int* vars, int n_systems, int shared, void* head, void* gains, int N,
+    int C, int k, float ridge, float jitter_frac, int min_neighbors,
+    int weight_kernel, void* stream) {
+  if (bad_common(k, weight_kernel) || N < 1 || C < 0 || S < 1 ||
+      n_systems < 0 || n_systems > MAX_SYSTEMS || F < T_VAR ||
+      (F - T_VAR) % T_VAR_COLS != 0 || (shared && N != 1) ||
+      (!shared && N != 12))
     return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-#define KN_ARGS                                                              \
-  static_cast<const float*>(xyz3k), static_cast<const float*>(dist),         \
-      static_cast<const float*>(mask), static_cast<const float*>(covs),      \
-      static_cast<const float*>(cell), static_cast<const float*>(norm),      \
-      static_cast<const float*>(vario), static_cast<const float*>(acovs),    \
-      static_cast<float*>(out), B, k, q, qa, ridge, jitter_frac,             \
-      min_neighbors, static_cast<cudaStream_t>(stream)
-  cudaError_t err;
-  if (k <= 32) {
-    err = weight_kernel == 0   ? launch<1, 0>(KN_ARGS)
-          : weight_kernel == 1 ? launch<1, 1>(KN_ARGS)
-                               : launch<1, 2>(KN_ARGS);
-  } else {
-    err = weight_kernel == 0   ? launch<2, 0>(KN_ARGS)
-          : weight_kernel == 1 ? launch<2, 1>(KN_ARGS)
-                               : launch<2, 2>(KN_ARGS);
+  Systems sys;
+  sys.n = n_systems;
+  for (int i = 0; i < MAX_SYSTEMS; ++i) {
+    sys.month[i] = i < n_systems ? months[i] : 0;
+    sys.var[i] = i < n_systems ? vars[i] : 0;
+    if (sys.month[i] < 0 || sys.month[i] > 11 || sys.var[i] < 0 ||
+        T_VAR + T_VAR_COLS * (sys.var[i] + 1) > F)
+      return (int)cudaErrorInvalidValue;
   }
-#undef KN_ARGS
+  if (C == 0) return 0;
+#define KI_ARGS                                                              \
+  idx, idx64, static_cast<const float*>(dist),                               \
+      static_cast<const unsigned char*>(mask),                               \
+      static_cast<const float*>(table), S, F,                                \
+      static_cast<const float*>(cell), sys, shared,                          \
+      static_cast<float*>(head), static_cast<float*>(gains), N, C, k,        \
+      weight_kernel, ridge, jitter_frac, min_neighbors,                      \
+      static_cast<cudaStream_t>(stream)
+  const cudaError_t err =
+      k <= 32 ? launch_indexed<1>(KI_ARGS) : launch_indexed<2>(KI_ARGS);
+#undef KI_ARGS
   return (int)err;
 }

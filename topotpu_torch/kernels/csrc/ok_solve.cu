@@ -13,15 +13,16 @@
 // (3k, B) unit-sphere rows with exact asinf (the TPU kernel's Taylor series
 // and its validity window are not carried over).
 //
-// What bounds it on an H100: from xyz, the same dependent chain of k
-// factorisation steps and 2k solve steps as krig_normals (latency; about
-// 4k + 3 floats read per cell). From pair distances, also the k^2 floats
-// per cell of the (k, k, B) input (1.07 GB at k = 64, B = 65,536): one warp
-// reads its cell's column, and the warps of a block cover consecutive
-// cells, so each 32-byte sector is shared by the block's warps through L1.
-// The assembly, factorisation, solves and masked sums are krig_core.cuh's,
-// shared with krig_normals.cu; blocks hold as many warps as fit in 48 KB of
-// shared memory (8 at k <= 32, 2 at k = 64).
+// What bounds it on an H100: from xyz, instruction throughput and latency on the
+// dependent chain of k factorisation steps, as krig_normals (about 4k + 3
+// floats read per cell). From pair distances, also the k^2 floats per cell
+// of the (k, k, B) input (1.07 GB at k = 64, B = 65,536): one warp reads its
+// cell's column, and the warps of a block cover consecutive cells, so each
+// 32-byte sector is shared by the block's warps through L1. The pair
+// distances, the assembly, the register-resident factorisation with its
+// solves and the masked sums are krig_core.cuh's, shared with
+// krig_normals.cu; blocks are 4 warps, with 7 KB of shared memory a warp at
+// k <= 32 and 26.4 KB above (limit raised with cudaFuncSetAttribute).
 //
 // C interface: ok_solve_launch(...) launches on the given stream and returns
 // cudaGetLastError(). Inputs are row-major float32 with the cell index
@@ -38,30 +39,29 @@
 
 namespace {
 
-__host__ __device__ constexpr int floats_per_warp(int k) {
-  return k * (k + 1) + 4 * k;
-}
-
 template <int R, bool XYZ>
-__global__ void __launch_bounds__(256) ok_solve_kernel(
+__global__ void __launch_bounds__(32 * krig::WARPS_PER_BLOCK,
+                                  krig::min_blocks(R))
+ok_solve_kernel(
     const float* __restrict__ first, const float* __restrict__ dist_point,
     const float* __restrict__ mask, const float* __restrict__ nugget,
     const float* __restrict__ psill, const float* __restrict__ rng,
     float* __restrict__ weights, float* __restrict__ variance,
     unsigned char* __restrict__ ok_out, int B, int k, float jitter_frac,
     int min_neighbors) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  using L = krig::Layout<R>;
+  constexpr int K = L::K;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int c = blockIdx.x * krig::WARPS_PER_BLOCK + warp;
   if (c >= B) return;  // whole warps only: no block-level barrier follows
 
-  const int LD = k + 1;
-  float* sC = smem + warp * floats_per_warp(k);  // k x k, row stride k + 1
-  float* sx = sC + k * LD;
-  float* sy = sx + k;
-  float* sz = sy + k;
-  float* sm = sz + k;
+  float* ws = reinterpret_cast<float*>(smem4) + warp * L::FLOATS;
+  float* sA = ws + L::A;  // the matrix; x, y, z rows before it is assembled
+  float* sD = ws + L::D;
+  float* scol = ws + L::COL;
+  float* sm = ws + L::M;
 
   float m[R], d[R];
 #pragma unroll
@@ -72,9 +72,9 @@ __global__ void __launch_bounds__(256) ok_solve_kernel(
     if (s < k) {
       sm[s] = m[r];
       if (XYZ) {
-        sx[s] = first[(size_t)s * B + c];
-        sy[s] = first[(size_t)(k + s) * B + c];
-        sz[s] = first[(size_t)(2 * k + s) * B + c];
+        sA[s] = first[(size_t)s * B + c];
+        sA[K + s] = first[(size_t)(k + s) * B + c];
+        sA[2 * K + s] = first[(size_t)(2 * k + s) * B + c];
       }
     }
   }
@@ -84,17 +84,22 @@ __global__ void __launch_bounds__(256) ok_solve_kernel(
   const float sill = nug + ps;
   __syncwarp();
 
-  const float diag_add = nug + jitter_frac * sill;
+  float dd[R];
   if (XYZ) {
-    krig::assemble_exp_cov<R>(
-        sC, LD, k, lane, m, sm, ps, rg, diag_add,
-        [&](int i, int j) { return krig::chord_km(sx, sy, sz, i, j); });
+    krig::fill_pair_km<R>(sD, k, lane, dd, [&](int i, int j) {
+      return krig::chord_km(sA, sA + K, sA + 2 * K, i, j);
+    });
   } else {
-    krig::assemble_exp_cov<R>(
-        sC, LD, k, lane, m, sm, ps, rg, diag_add, [&](int i, int j) {
-          return first[((size_t)i * k + j) * B + c];
-        });
+    krig::fill_pair_km<R>(sD, k, lane, dd, [&](int i, int j) {
+      return first[((size_t)i * k + j) * B + c];
+    });
   }
+  __syncwarp();
+  const float diag_add = nug + jitter_frac * sill;
+  krig::assemble_exp_cov<R>(sA, sD, sm, dd, m, k, lane, ps, rg, diag_add);
+  __syncwarp();
+  float a[R][K];
+  krig::load_rows<R>(sA, lane, a);
   float c0[R], y0[R], y1[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -102,9 +107,9 @@ __global__ void __launch_bounds__(256) ok_solve_kernel(
     y0[r] = c0[r];
     y1[r] = m[r];
   }
-  __syncwarp();
+  __syncwarp();  // every lane holds its rows: sA becomes L's place
 
-  krig::chol_two_solves<R>(sC, LD, k, lane, y0, y1);
+  krig::chol_two_solves<R>(a, sA, scol, k, lane, y0, y1);
 
   float sa, su, nv;
   krig::masked_sums<R>(y0, y1, m, sa, su, nv);
@@ -131,12 +136,11 @@ cudaError_t launch(const float* first, const float* dist_point,
                    const float* rng, float* weights, float* variance,
                    unsigned char* ok, int B, int k, float jitter_frac,
                    int min_neighbors, cudaStream_t stream) {
-  const size_t warp_bytes = sizeof(float) * floats_per_warp(k);
-  int wpb = (int)((48 * 1024) / warp_bytes);
-  wpb = wpb < 1 ? 1 : (wpb > 8 ? 8 : wpb);
-  const dim3 block(32 * wpb);
-  const dim3 grid((B + wpb - 1) / wpb);
-  ok_solve_kernel<R, XYZ><<<grid, block, wpb * warp_bytes, stream>>>(
+  size_t bytes;
+  cudaError_t err = krig::shared_bytes<R>(ok_solve_kernel<R, XYZ>, &bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + krig::WARPS_PER_BLOCK - 1) / krig::WARPS_PER_BLOCK);
+  ok_solve_kernel<R, XYZ><<<grid, 32 * krig::WARPS_PER_BLOCK, bytes, stream>>>(
       first, dist_point, mask, nugget, psill, rng, weights, variance, ok, B, k,
       jitter_frac, min_neighbors);
   return cudaGetLastError();

@@ -1,16 +1,26 @@
-"""Fused regression-kriging normals: kernel wrapper and its plain version.
+"""Fused regression-kriging normals: the kernel's wrapper and its plain version.
 
-``krig_normals_fused`` has the signature and output rows of
-``topotpu.kernels.pallas_krig.krig_normals_fused``: inputs are (rows, B)
-with the cell index last, and the (8 + k, B) output holds
+``krig_normals_indexed`` launches ``csrc/krig_normals.cu`` on CUDA tensors
+and runs a plain torch version on CPU tensors. It computes, per (cell,
+month, variable), the head values
 
     [normal, variance, ok, trend, nugget, psill, range, 0]
 
-then the k anomaly-GWR gain rows. On CUDA tensors it launches
-``csrc/krig_normals.cu``; on CPU tensors it runs ``krig_normals_fused_ref``,
-which composes the port's plain modules (distance weights, centred design,
-WLS, variogram interpolation, pair distances, covariance assembly, OK solve,
-GWR gain). Any B and any 1 <= k <= 64 are taken; no padding.
+and, per neighbourhood, the k anomaly-GWR gains of every cell: the chain of
+``topotpu.kernels.pallas_krig.krig_normals_fused``, which took one system
+from gathered (rows, B) planes. This entry takes the neighbourhoods as
+``select_neighbors`` leaves them (``idx``, ``dist``, ``mask``, each
+(N, C, k)), the station table and the cell table (see ``station_table`` /
+``cell_table``), and the list of (month, variable) systems to solve, and
+covers them all in one launch. With ``shared`` there is one neighbourhood
+(N = 1) for every system; without, neighbourhood n serves the systems of
+month n (N = 12). It returns the heads (P, C, 8) and the gains (N, C, k).
+
+The plain version, ``krig_normals_indexed_ref``, is the port of
+``topotpu.interp.normals.krig_normals``: it composes the port's plain
+modules (distance weights, centred design, WLS, variogram interpolation,
+pair distances, covariance assembly, OK solve, GWR gain). Any C and any
+1 <= k <= 64 are taken; no padding.
 """
 
 from __future__ import annotations
@@ -26,122 +36,209 @@ from topotpu_torch.kernels.cholesky import assemble_exp_cov, ok_solve
 from topotpu_torch.kernels.wls import batched_gwr_gain, batched_wls, center_design
 
 WEIGHT_KERNELS = ("bisquare", "gaussian", "uniform")  # kernel's enum order
-OUT_EXTRA = 8  # rows before the k gain rows
+OUT_EXTRA = 8  # head values of a system (rows before the k gain rows)
+MAX_SYSTEMS = 96  # systems one indexed launch takes
 
-_ARGTYPES = (
-    (ctypes.c_void_p,) * 9
-    + (ctypes.c_int,) * 4
-    + (ctypes.c_float, ctypes.c_float)
+# Station table columns: elev, tdi, x_km, y_km, xyz(3), lst(12), then per
+# variable norm(12) and vario(12 x 3, month-major). Cell table columns: elev,
+# tdi, x_km, y_km, lst(12).
+TABLE_BASE = 19
+TABLE_VAR_COLS = 48
+CELL_COLS = 16
+
+_INDEXED_ARGTYPES = (
+    (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
+    + (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 2
+    + (ctypes.c_int,) * 3 + (ctypes.c_float, ctypes.c_float)
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 )
 
 
-def _split_rows(a: torch.Tensor, k: int) -> torch.Tensor:
-    """(n k, B) covariate-major rows -> (B, k, n)."""
-    n = a.shape[0] // k
-    return a.reshape(n, k, a.shape[1]).permute(2, 1, 0)
+def station_table(elev, tdi, x_km, y_km, xyz, lst, variables) -> torch.Tensor:
+    """The (S, 19 + 48 V) station table of the indexed entry: one row a
+    station. ``elev``, ``tdi``, ``x_km``, ``y_km`` (S,); ``xyz`` (S, 3);
+    ``lst`` (S, 12); ``variables`` a sequence of (norm (S, 12), vario
+    (S, 12, 3)), one per variable."""
+    dtype = xyz.dtype
+    S = xyz.shape[0]
+    cols = [elev.to(dtype)[:, None], tdi.to(dtype)[:, None], x_km.to(dtype)[:, None],
+            y_km.to(dtype)[:, None], xyz, lst.to(dtype)]
+    for norm, vario in variables:
+        cols += [norm.to(dtype), vario.to(dtype).reshape(S, 36)]
+    return torch.cat(cols, dim=1)
 
 
-def _shape_args(dist_t, covs_t, acovs_t):
-    k, B = dist_t.shape
-    if not 1 <= k <= 64:
-        raise ValueError(f"krig_normals: k={k} outside 1..64")
-    if covs_t.shape[0] % k or acovs_t.shape[0] % k:
-        raise ValueError("krig_normals: covariate rows must be multiples of k")
-    q, qa = covs_t.shape[0] // k, acovs_t.shape[0] // k
-    if q + qa > OUT_EXTRA or q >= OUT_EXTRA or qa >= OUT_EXTRA:
-        raise ValueError(f"krig_normals: q={q}, qa={qa} exceed the 8 cell rows")
-    return k, B, q, qa
+def cell_table(elev, tdi, x_km, y_km, lst) -> torch.Tensor:
+    """The (C, 16) cell table of the indexed entry: elev, tdi, x_km, y_km
+    (C,) and lst (C, 12)."""
+    return torch.cat([torch.stack([elev, tdi, x_km, y_km], dim=-1), lst], dim=1)
 
 
-def krig_normals_fused_ref(
-    xyz3k, dist_t, mask_t, covs_t, cell_t, norm_t, vario_t, acovs_t,
-    ridge: float = 1e-6, jitter_frac: float = 1e-5, min_neighbors: int = 3,
-    weight_kernel: str = "bisquare",
-) -> torch.Tensor:
-    """Plain version of the kernel: the same (8 + k, B) rows, computed with
-    the port's batched torch modules in the dtype of the inputs."""
-    from topotpu_torch.interp.normals import interp_cell_variogram
+def system_columns(G: torch.Tensor, cell: torch.Tensor, m: int, v: int) -> dict:
+    """What system (month m, variable v) reads of gathered station-table rows
+    ``G`` (..., F) and of the cell table (C, 16): ``xyz`` (..., 3), the trend
+    covariates ``cov`` (..., 3) and ``cell_cov`` (C, 3) (elev, tdi, lst_m),
+    ``norm`` (...,), ``vario`` (..., 3), and the anomaly covariates ``acov``
+    (..., 3) and ``cell_acov`` (C, 3) (elev, x_km, y_km)."""
+    base = TABLE_BASE + TABLE_VAR_COLS * v
+    return dict(
+        xyz=G[..., 4:7], cov=G[..., [0, 1, 7 + m]], cell_cov=cell[:, [0, 1, 4 + m]],
+        norm=G[..., base + m], vario=G[..., base + 12 + 3 * m : base + 15 + 3 * m],
+        acov=G[..., [0, 2, 3]], cell_acov=cell[:, [0, 2, 3]],
+    )
 
-    k, B, q, qa = _shape_args(dist_t, covs_t, acovs_t)
-    dist = dist_t.T
-    mask = mask_t.T > 0.5
-    nbr_norm = norm_t.T
-    w = distance_weights(dist, mask, weight_kernel)
 
-    X, x0, _ = center_design(_split_rows(covs_t, k), cell_t[:q].T, w)
+def _cell_variogram(nbr_vario: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(C, k, 3) station params + (C, k) weights -> (C, 3) cell params
+    (``topotpu.interp.normals.interp_cell_variogram``)."""
+    wsum = torch.sum(w, dim=-1, keepdim=True) + 1e-30
+    v = torch.einsum("ck,ckp->cp", w, nbr_vario) / wsum
+    nug = torch.clamp(v[..., 0], min=0.0)
+    psill = torch.clamp(v[..., 1], min=1e-6)
+    rng = torch.clamp(v[..., 2], min=1e-2)
+    return torch.stack([nug, psill, rng], dim=-1)
+
+
+def _head(dist, mask, w, xyz, cov, cell_cov, nbr_norm, nbr_vario, ridge, jitter_frac,
+          min_neighbors) -> torch.Tensor:
+    """One system's head values (C, 8) from gathered (C, k, ...) inputs and
+    the neighbourhood's weights ``w``."""
+    X, x0, _ = center_design(cov, cell_cov, w)
     beta = batched_wls(X, nbr_norm, w, ridge)
     trend = torch.sum(x0 * beta, dim=-1)
     trend_at = torch.einsum("ckp,cp->ck", X, beta)
     resid = torch.where(mask, nbr_norm - trend_at, torch.zeros_like(trend_at))
 
-    vario = interp_cell_variogram(_split_rows(vario_t, k), w)
-    xyz = _split_rows(xyz3k, k)
+    vario = _cell_variogram(nbr_vario, w)
     C, c0, sill = assemble_exp_cov(
         pairwise_km_from_xyz(xyz, xyz), dist,
         vario[:, 0], vario[:, 1], vario[:, 2], mask, jitter_frac=jitter_frac,
     )
     sol = ok_solve(C, c0, mask, sill, min_neighbors)
     normal = trend + torch.sum(sol.weights * resid, dim=-1)
-
-    Xa, xa0, _ = center_design(_split_rows(acovs_t, k), cell_t[q : q + qa].T, w)
-    gains = batched_gwr_gain(Xa, w, xa0, ridge)
-
-    head = torch.stack(
+    return torch.stack(
         [normal, sol.variance, sol.ok.to(normal.dtype), trend,
-         vario[:, 0], vario[:, 1], vario[:, 2], torch.zeros_like(normal)]
-    )
-    return torch.cat([head, gains.T], dim=0)
+         vario[:, 0], vario[:, 1], vario[:, 2], torch.zeros_like(normal)], dim=-1)
 
 
-def krig_normals_fused(
-    xyz3k: torch.Tensor,    # (3k, B) unit-sphere coords, coordinate-major
-    dist_t: torch.Tensor,   # (k, B) neighbour distances, km
-    mask_t: torch.Tensor,   # (k, B) 0/1
-    covs_t: torch.Tensor,   # (q k, B) trend covariates, covariate-major
-    cell_t: torch.Tensor,   # (8, B) cell covariates: trend rows, then anomaly
-    norm_t: torch.Tensor,   # (k, B) station monthly normals
-    vario_t: torch.Tensor,  # (3k, B) nugget rows, psill rows, range rows
-    acovs_t: torch.Tensor,  # (qa k, B) anomaly-GWR covariates
+def _gains(w, acov, cell_acov, ridge) -> torch.Tensor:
+    """The neighbourhood's anomaly-GWR gain rows (C, k)."""
+    Xa, xa0, _ = center_design(acov, cell_acov, w)
+    return batched_gwr_gain(Xa, w, xa0, ridge)
+
+
+def _indexed_args(idx, dist, mask, table, cell, pairs, shared):
+    """Shapes of the indexed entry's arguments, checked: (N, C, k, V, pairs)."""
+    what = "krig_normals_indexed"
+    if idx.dim() != 3 or dist.shape != idx.shape or mask.shape != idx.shape:
+        raise ValueError(f"{what}: idx, dist and mask must share one (N, C, k) shape")
+    N, C, k = idx.shape
+    if not 1 <= k <= 64:
+        raise ValueError(f"{what}: k={k} outside 1..64")
+    if N != (1 if shared else 12):
+        raise ValueError(f"{what}: {N} neighbourhoods, expected {1 if shared else 12}")
+    if table.dim() != 2 or table.shape[1] < TABLE_BASE or (
+            table.shape[1] - TABLE_BASE) % TABLE_VAR_COLS:
+        raise ValueError(f"{what}: station table of shape {tuple(table.shape)}")
+    if tuple(cell.shape) != (C, CELL_COLS):
+        raise ValueError(f"{what}: cell table of shape {tuple(cell.shape)}, expected "
+                         f"{(C, CELL_COLS)}")
+    V = (table.shape[1] - TABLE_BASE) // TABLE_VAR_COLS
+    pairs = [(int(m), int(v)) for m, v in pairs]
+    if len(pairs) > MAX_SYSTEMS:
+        raise ValueError(f"{what}: {len(pairs)} systems, at most {MAX_SYSTEMS} a call")
+    if any(not (0 <= m < 12 and 0 <= v < V) for m, v in pairs):
+        raise ValueError(f"{what}: a (month, variable) pair outside 12 x {V}")
+    return N, C, k, V, pairs
+
+
+def krig_normals_indexed_ref(
+    idx, dist, mask, table, cell, pairs, shared: bool,
+    ridge: float = 1e-6, jitter_frac: float = 1e-5, min_neighbors: int = 3,
+    weight_kernel: str = "bisquare",
+):
+    """Plain version of the indexed entry: the same arguments, heads
+    (P, C, 8) and gains (N, C, k), computed with the port's batched torch
+    modules in the dtype of the tables. Each neighbourhood's table rows are
+    gathered once."""
+    N, C, _, _, pairs = _indexed_args(idx, dist, mask, table, cell, pairs, shared)
+    heads = [None] * len(pairs)
+    gains = []
+    for n in range(N):
+        G = table[idx[n].long()]  # (C, k, F)
+        d, msk = dist[n].to(table.dtype), mask[n].bool()
+        w = distance_weights(d, msk, weight_kernel)
+        c = system_columns(G, cell, 0, 0)
+        gains.append(_gains(w, c["acov"], c["cell_acov"], ridge))
+        for p, (m, v) in enumerate(pairs):
+            if not shared and m != n:
+                continue
+            c = system_columns(G, cell, m, v)
+            heads[p] = _head(d, msk, w, c["xyz"], c["cov"], c["cell_cov"], c["norm"],
+                             c["vario"], ridge, jitter_frac, min_neighbors)
+    head = (torch.stack(heads) if heads
+            else table.new_zeros((0, C, OUT_EXTRA)))
+    return head, torch.stack(gains)
+
+
+def krig_normals_indexed(
+    idx: torch.Tensor,    # (N, C, k) int32 or int64 station rows of the table
+    dist: torch.Tensor,   # (N, C, k) float32 neighbour distances, km
+    mask: torch.Tensor,   # (N, C, k) bool
+    table: torch.Tensor,  # (S, 19 + 48 V) float32, see station_table
+    cell: torch.Tensor,   # (C, 16) float32, see cell_table
+    pairs,                # the (month, variable) systems to solve
+    shared: bool,         # one neighbourhood for every system (N = 1), or
+                          # neighbourhood n for the systems of month n (N = 12)
     ridge: float = 1e-6,
     jitter_frac: float = 1e-5,
     min_neighbors: int = 3,
     weight_kernel: str = "bisquare",
-) -> torch.Tensor:
-    """Whole regression-kriging chain + anomaly gains -> (8 + k, B)."""
-    what = "krig_normals"
-    args = (xyz3k, dist_t, mask_t, covs_t, cell_t, norm_t, vario_t, acovs_t)
+):
+    """Every system of ``pairs`` in one launch -> (head (P, C, 8), gains
+    (N, C, k)); head[p] holds system ``pairs[p]``. Every entry of ``idx``,
+    masked slots included, must be a row of ``table``: the plain version
+    raises on another, the kernel (which does not read ``idx`` back to the
+    host to check it) clamps it into the table, which is inert only where
+    the slot is masked."""
+    what = "krig_normals_indexed"
+    args = (idx, dist, mask, table, cell)
     dev = _build.common_device(what, *args)
     if weight_kernel not in WEIGHT_KERNELS:
         raise ValueError(f"unknown weight kernel {weight_kernel!r}")
+    kw = dict(ridge=ridge, jitter_frac=jitter_frac, min_neighbors=min_neighbors,
+              weight_kernel=weight_kernel)
     if dev.type == "cpu":
-        return krig_normals_fused_ref(
-            *args, ridge=ridge, jitter_frac=jitter_frac,
-            min_neighbors=min_neighbors, weight_kernel=weight_kernel,
-        )
-    k, B, q, qa = _shape_args(dist_t, covs_t, acovs_t)
-    if (3 * k + 8) * B >= 2**31:
-        raise ValueError(f"krig_normals: B={B} too large for 32-bit offsets")
+        return krig_normals_indexed_ref(*args, pairs, shared, **kw)
+    N, C, k, _, pairs = _indexed_args(*args, pairs, shared)
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{what}: idx is {idx.dtype}, expected int32 or int64")
     f32 = torch.float32
-    for name, t, rows in (
-        ("xyz3k", xyz3k, 3 * k), ("dist_t", dist_t, k), ("mask_t", mask_t, k),
-        ("covs_t", covs_t, q * k), ("cell_t", cell_t, OUT_EXTRA),
-        ("norm_t", norm_t, k), ("vario_t", vario_t, 3 * k),
-        ("acovs_t", acovs_t, qa * k),
-    ):
-        _build.require(what, name, t, f32, (rows, B))
-    out = torch.empty((OUT_EXTRA + k, B), dtype=f32, device=dev)
-    fn = _build.load("krig_normals", "krig_normals_launch", _ARGTYPES)
+    S, F = table.shape
+    _build.require(what, "idx", idx, idx.dtype, (N, C, k))
+    _build.require(what, "dist", dist, f32, (N, C, k))
+    _build.require(what, "mask", mask, torch.bool, (N, C, k))
+    _build.require(what, "table", table, f32, (S, F))
+    _build.require(what, "cell", cell, f32, (C, CELL_COLS))
+    P = len(pairs)
+    head = torch.empty((P, C, OUT_EXTRA), dtype=f32, device=dev)
+    gains = torch.empty((N, C, k), dtype=f32, device=dev)
+    months = (ctypes.c_int * max(P, 1))(*(m for m, _ in pairs))
+    variables = (ctypes.c_int * max(P, 1))(*(v for _, v in pairs))
+    fn = _build.load("krig_normals", "krig_normals_indexed_launch", _INDEXED_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
-            *(t.data_ptr() for t in args), out.data_ptr(), B, k, q, qa,
-            ridge, jitter_frac, min_neighbors,
-            WEIGHT_KERNELS.index(weight_kernel),
+            idx.data_ptr(), int(idx.dtype == torch.int64), dist.data_ptr(), mask.data_ptr(),
+            table.data_ptr(), S, F, cell.data_ptr(),
+            ctypes.cast(months, ctypes.c_void_p), ctypes.cast(variables, ctypes.c_void_p),
+            P, int(bool(shared)), head.data_ptr(), gains.data_ptr(), N, C, k,
+            ridge, jitter_frac, min_neighbors, WEIGHT_KERNELS.index(weight_kernel),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, what)
-    krig_normals_fused.launches += 1
-    return out
+    krig_normals_indexed.launches += 1
+    return head, gains
 
 
-krig_normals_fused.launches = 0
+krig_normals_indexed.launches = 0
