@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port, ``topotpu_torch``, once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py kernels    # phases 1-3 only (kernel times of one source tree), then
+                                     # exit 0 without the last two lines
+    python3 chip_smoke.py scatter    # the same with only the daily contraction's lines
 
 Phases, in order; each prints one line, and any failure exits non-zero:
 
@@ -20,7 +23,16 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    launches on the same inputs. Beside each kernel's time: its bound (the
    larger of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s), and
    for the daily contraction the time of ``scatter_add_`` + ``matmul`` (two
-   library calls). Then the fused OK solve at its own API, both entries
+   library calls). The daily contraction's packed entry
+   (``scatter_daily_packed``: contraction, + normal, reconcile, int16
+   quantisation and calendar order in one launch) runs at both variables,
+   365 days (31 slots a month) and 1,461 days (124), with one neighbourhood
+   and with one a month, with shared and with per-variable gain rows, the
+   reconcile on, part of the cells not ok: against its plain version by the
+   integer rule (sentinels identical, at most one int16 count apart, under
+   1 % of counts differing, no tmax < tmin where both are ok), beside the
+   time of the float entry followed by the packing in plain torch. Then the
+   fused OK solve at its own API, both entries
    (pair distances, xyz), B = 65,536 and k = 32 and 64: one call of each
    entry with the launch counters from 0, then the comparison with the
    plain version (``tests/test_pallas_krig.py``'s tolerances on every value,
@@ -28,15 +40,19 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. The run must launch
-   ``krig_normals`` and ``scatter_daily`` exactly once each; the decoded
+   ``krig_normals`` and ``scatter_daily_packed`` exactly once each and the
+   float entry ``scatter_daily`` not at all; the decoded
    int16 product is held against the float64 numpy oracle and the world's
    true normals. Then the same step with per-variable neighbourhood sizes
-   on one 128 x 128 tile, which launches ``krig_normals`` once a variable.
+   on one 128 x 128 tile, which launches ``krig_normals`` once a variable
+   and ``scatter_daily_packed`` once.
 5. the reconcile on the lattice at one 128 x 128 production tile with
-   crossing variables: no cell where both are ok may have tmax < tmin.
+   crossing variables: no cell where both are ok may have tmax < tmin. Its
+   float step (``interp_tile_pair``) must launch ``scatter_daily`` once.
 6. a profiler breakdown of one step, with the launch counts read from the
-   trace (one ``krig_normals`` kernel) and the copy and ``cat`` kernels'
-   share.
+   trace (one ``krig_normals`` kernel, one packed kernel, no float-entry
+   kernel), the copy, ``cat`` and elementwise kernels' share and the total
+   number of kernel launches.
 7. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
    krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
@@ -45,14 +61,17 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    and the timed run's fits of them against scipy's; then the indexed
    ``krig_normals`` kernel against its plain version at the x-val runs' own
    shapes (12 LOO neighbourhoods, the 10,000 stations as cells and as table
-   rows, one variable) at k = 32 by ``_compare_krig``'s rule and at k = 16
-   with float64 deciding by statistics (``ill_conditioned``); then the LOO x-val
+   rows, one variable) at every k of the nnghs sweep: k = 32 and 48 by
+   ``_compare_krig``'s rule value by value, k = 8, 16 and 24 with float64
+   deciding by statistics (``ill_conditioned``); then the LOO x-val
    of normals at k = 32 (accuracy bars, July normals of 256 stations against
    the float64 pipeline oracle run with the station left out), the nnghs
    sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
    anomaly sweep over (8, 16, 24, 32). The indexed ``krig_normals`` launch
    counter must rise by one per x-val run. Each stage's wall time and the peak device
-   memory are printed.
+   memory are printed, and profiler breakdowns of krig-params (5 of its
+   50 Gauss-Newton iterations: reading the whole trace took the profiler
+   about 50 s) and of the daily x-val.
 8. the PPCA infill at BASELINE config #3's settings
    (``configs/config3_infill.json``: 12 components, 24 predictors, 200
    iterations, batches of 32) over the first 5,000 stations of the station
@@ -65,8 +84,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    20 % hold-out, then the post-infill
    changepoint flags. Printed: the walls of ``select_predictors``, the EM
    batch loop, ``changepoint_flags`` and ``xval_infill``, the EM iteration
-   statistics, peak device memory and a profiler breakdown of two EM
-   batches. It fails unless the device branch of ``select_predictors`` ran,
+   statistics, peak device memory and a profiler breakdown of one EM
+   batch over 50 iterations. It fails unless the device branch of ``select_predictors`` ran,
    the held-out MAE is under 0.6 x the station-month climatology's, |bias|
    < 0.1 C, the filled series' monthly normals are within 0.15 C MAE of the
    truth, every kept observation comes back unchanged and every value is
@@ -85,7 +104,9 @@ It imports nothing of JAX and nothing of the JAX package: configuration,
 dates, the synthetic world and the float64 oracle are the port's own.
 """
 
+import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -111,7 +132,7 @@ IN_STATIONS = 5000    # the first 5,000 of the station phase's 10,000 (see phase
 IN_GAPS = 0.15        # the CLI's synthetic random gaps (cli/steps.py step_synth_data)
 IN_HOLDOUT = 0.2      # xval_infill's hold-out
 IN_TIE_MARGIN = 1e-4  # predictor score units (|corr| + 1); float32 grams part by ~1e-6
-KERNELS = ("krig_normals", "scatter_daily", "ok_solve")
+KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 
@@ -139,20 +160,25 @@ def phase_environment():
     return dev, name
 
 
-def phase_build():
+def phase_build(names=KERNELS):
     from concurrent.futures import ThreadPoolExecutor
 
     from topotpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
-        paths = list(pool.map(_build.build, KERNELS))
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        paths = list(pool.map(_build.build, names))
     reports = []
     for path in paths:
         log_text = path.with_name(path.name + ".log").read_text()
-        reports += [ln.strip() for ln in log_text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-    log(f"[build] nvcc {_build.find_nvcc()} built {', '.join(KERNELS)} in "
+        for ln in log_text.splitlines():
+            entry = re.findall(r"\d+([a-z][a-z_]*_kernel)((?:I(?:L[ib]\d+E)+E)?)", ln)
+            if "Compiling entry function" in ln and entry:  # name and template arguments
+                args = ", ".join(re.findall(r"L[ib](\d+)E", entry[-1][1]))
+                reports.append(f"{entry[-1][0]}<{args}>")
+            elif "registers" in ln or "spill" in ln:
+                reports.append(ln.strip())
+    log(f"[build] nvcc {_build.find_nvcc()} built {', '.join(names)} in "
         f"{time.perf_counter() - t0:.3f} s")
     for ln in reports:
         log(f"[build] ptxas: {ln}")
@@ -233,15 +259,28 @@ def _compare_krig(got, want, want64, k, ill_conditioned=False):
     thousands of km has a float32 spacing above 1e-4); and the kernel no further from float64 than 2x the plain
     version's distance + the parity atol.
 
-    With ``ill_conditioned`` (the LOO systems at k = 16 over a network at
+    With ``ill_conditioned`` (the LOO systems at k <= 24 over a network at
     8.5 km spacing: a 4-column trend design whose float32 plain version
-    itself sits up to 5e-2 C from float64 at a few stations, and where the
-    worst station of a month is the kernel's as often as the plain
-    version's) the normal and the trend are held to the parity tolerance on
-    99 % of values, without the cap, and float64 decides by statistics, not
-    value by value: the mean, the 99th and the 99.9th percentile of the
+    itself sits up to 5e-2 C from float64 at a few stations at k = 16, and
+    where the worst station of a month is the kernel's as often as the plain
+    version's) float64 decides for the normal and the trend by statistics,
+    not value by value: the mean, the 99th and the 99.9th percentile of the
     kernel's distances at most 2x the plain version's + 1e-4 C, and its
-    worst within 0.1 C, the float32 band on record for small k."""
+    worst within 0.1 C, the float32 band on record for k = 16. At k = 24
+    that is the only change (one station's kernel normal is 2.4e-3 C from
+    float64 where the plain version's happens to be exact; the plain
+    version's worst is 2.6e-3 C); at k = 16 the normal and the trend are
+    moreover held to the parity tolerance on 99 % of values, without the cap.
+
+    Below k = 16 (the sweep's k = 8: four trend columns on eight neighbours)
+    float32 is further out still: on this network the plain version's
+    normals sit up to 0.64 C from float64 at the worst station of a month
+    (the kernel's up to 0.48 C), 95.7-97.3 % of a month's normals are inside
+    the parity tolerance, and the gain rows part by up to 1.8e-3 (99.88 %
+    inside). There the same statistics decide for the normal, the trend and
+    the gains, with 95 % of the normals and trends and 99 % of the gains
+    inside the parity tolerance, the kernel's worst normal within 1 C and
+    its worst gain within 1e-2."""
     import torch
 
     got, want, want64 = (t.double() for t in (got, want, want64))  # compared on the card
@@ -263,16 +302,22 @@ def _compare_krig(got, want, want64, k, ill_conditioned=False):
         within = d <= atol + rtol * w.abs()
         inside = float(within.double().mean())
         dmax = float(d.max())
-        by_stats = ill_conditioned and what in ("normal", "trend")
+        small = ill_conditioned and k < 16
+        trendish = what in ("normal", "trend")
+        by_stats = ill_conditioned and (trendish or (small and what == "gains"))
+        loose = by_stats and k < 24
         # one float32 step of a 2,000 km range is 1.2e-4, above the cap
         capped = d[~within] if what == "variogram" else d
-        over_cap = not by_stats and capped.numel() > 0 and float(capped.max()) > cap
-        if inside < (0.99 if by_stats else 0.999) or over_cap:
+        over_cap = not loose and capped.numel() > 0 and float(capped.max()) > cap
+        share = 0.999 if not loose else 0.95 if small and trendish else 0.99
+        if inside < share or over_cap:
             raise AssertionError(f"{what}: {inside:.5f} within tolerance, max {dmax:.3e}")
         e_kern, e_plain = (g - w64).abs(), (w - w64).abs()
         if by_stats:
-            stats = (torch.mean, lambda e: e.quantile(0.99), lambda e: e.quantile(0.999))
-            further = float(e_kern.max()) > 0.1 or any(
+            stats = (torch.mean, lambda e: e.flatten().quantile(0.99),
+                     lambda e: e.flatten().quantile(0.999))
+            worst = (1.0 if small else 0.1) if trendish else 1e-2
+            further = float(e_kern.max()) > worst or any(
                 float(stat(e_kern)) > 2 * float(stat(e_plain)) + 1e-4 for stat in stats)
         else:
             further = bool((e_kern > 2 * e_plain + atol + rtol * w64.abs()).any())
@@ -365,8 +410,6 @@ def phase_kernels(world, days, rows64, dev):
         krig_normals_indexed,
         krig_normals_indexed_ref,
     )
-    from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
-
     C = N_SIDE * N_SIDE
     report = {}
 
@@ -410,24 +453,36 @@ def phase_kernels(world, days, rows64, dev):
                                           library_ms=None, **bnd)
         del args, idx, dist, mask, table, cell
     del ti
+    report.update(scatter_lines(rows64, dev))
+    return report
 
+
+def scatter_lines(rows64, dev):
+    """The daily contraction's two entries against their plain versions at
+    the tile step's shapes; the report of each at the main path's shape."""
+    import torch
+
+    from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
+
+    C = N_SIDE * N_SIDE
+    report = {}
     rng = np.random.default_rng(1)
-    idx = np.ascontiguousarray(rows64["idx"][:, :K].T.astype(np.int32))  # (k, C)
-    idx[1, ::3] = idx[0, ::3]  # duplicate indices accumulate
+    idx = np.ascontiguousarray(rows64["idx"][:, :K])  # (C, k) int64, as select_neighbors' topk
+    idx[::3, 1] = idx[::3, 0]  # duplicate indices accumulate
     for D in (744, 2976):
-        planes = [
+        args = [
             torch.from_numpy(idx).to(dev),
-            torch.from_numpy(rng.normal(size=(K, C)).astype(np.float32)).to(dev),
-            torch.from_numpy((rng.uniform(size=(K, C)) > 0.05).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.normal(size=(C, K)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(size=(C, K)) > 0.05).to(dev),
             torch.from_numpy(rng.normal(size=(N_STATIONS, D)).astype(np.float32)).to(dev),
         ]
-        kern = lambda: scatter_daily(*planes)  # noqa: E731
-        plain = lambda: scatter_daily_ref(*planes)  # noqa: E731
+        kern = lambda: scatter_daily(*args)  # noqa: E731
+        plain = lambda: scatter_daily_ref(*args)  # noqa: E731
 
         def library():  # a dense (C, S) gain matrix, then one full-fp32 product
-            i, g, m, y = planes
+            i, g, m, y = args
             G = torch.zeros((C, N_STATIONS), dtype=g.dtype, device=dev)
-            return G.scatter_add_(1, i.T.long(), (g * m).T) @ y
+            return G.scatter_add_(1, i.long(), g * m) @ y
 
         got = kern().cpu().numpy()
         want = plain().cpu().numpy()
@@ -437,7 +492,8 @@ def phase_kernels(world, days, rows64, dev):
         err = float(np.abs(got - want).max())
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
         library_ms = cuda_ms(library, 5, warmup=1)
-        bnd = bound(sum(p.numel() for p in planes) * 4 + C * D * 4, 2.0 * K * C * D)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + C * D * 4
+        bnd = bound(nbytes, 2.0 * K * C * D)
         log(f"[kernels] scatter_daily C={C} S={N_STATIONS} k={K} D={D}: max_abs_err "
             f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
             f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; scatter_add_ + matmul (two "
@@ -446,6 +502,141 @@ def phase_kernels(world, days, rows64, dev):
         if D == 744:
             report["scatter_daily"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                            library_ms=library_ms, **bnd)
+        del args, got, want
+    report["scatter_daily_packed"] = _packed_lines(rows64["idx"], dev)
+    return report
+
+
+def _packed_by_parts(idx, mask, gains, Y, normal, ok, slot_of_day, scales, reconcile):
+    """The packed entry's daily rows the way the step made them before the
+    entry existed: the float entry over the variables' concatenated day axes
+    (one call with one neighbourhood, one a month with twelve, one more set
+    with per-variable gains), then the packing in plain torch. Returns the
+    (V, ndays, C) int16 rows."""
+    import torch
+
+    from topotpu_torch.kernels.scatter_daily import quantize_plane_fixed, scatter_daily
+
+    G, N, C, _ = gains.shape
+    V, S, D = Y.shape
+    dpm = D // 12
+    anoms = [None] * V
+    for g in range(G):
+        vs = list(range(V)) if G == 1 else [g]
+        if N == 1:
+            Yc = torch.cat([Y[v] for v in vs], dim=1)
+            out = scatter_daily(idx[0], gains[g, 0], mask[0], Yc)
+            out = out.view(C, len(vs), 12, dpm).permute(1, 2, 0, 3)
+        else:
+            out = torch.stack([
+                scatter_daily(idx[m], gains[g, m], mask[m],
+                              torch.cat([Y[v, :, m * dpm:(m + 1) * dpm] for v in vs], dim=1)
+                              ).view(C, len(vs), dpm)
+                for m in range(12)]).permute(2, 0, 1, 3)
+        for j, v in enumerate(vs):
+            anoms[v] = out[j]
+    daily = [normal[v][:, :, None] + anoms[v] for v in range(V)]
+    if reconcile:
+        bad = (ok[0] & ok[1])[:, :, None] & (daily[1] < daily[0])
+        mid = 0.5 * (daily[0] + daily[1])
+        daily = [torch.where(bad, mid, d) for d in daily]
+    slot = slot_of_day.long()
+    return torch.stack([
+        quantize_plane_fixed(daily[v], ok[v][:, :, None], scales[v, 0], scales[v, 1])
+        .permute(0, 2, 1).reshape(D, C)[slot] for v in range(V)])
+
+
+def _packed_lines(idx64, dev):
+    """``scatter_daily_packed`` against its plain version at the tile step's
+    shapes: both variables on one lattice, the reconcile on, neighbourhoods
+    from the benchmark world (month m's are slots m .. m + k - 1 of each
+    cell's 64 nearest, so the twelve differ and stay local), duplicate and
+    stray indices, masked slots, 3 % of the cells not ok in a month, var B's
+    normals 0.2 C above var A's so that the dailies cross on part of the
+    days. The integer rule: sentinel positions identical, at most one int16
+    count apart, under 1 % of the counts differing, and no cell with both ok
+    and q_1 < q_0. Returns the report of the main path's shape (365 days, one
+    neighbourhood, shared gains)."""
+    import torch
+
+    from topotpu_torch.core.config import TopoConfig
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.interp.convert import fixed_scales_from_config
+    from topotpu_torch.interp.point import month_layout
+    from topotpu_torch.kernels.scatter_daily import scatter_daily_packed, scatter_daily_packed_ref
+
+    C, V = idx64.shape[0], 2
+    fs = fixed_scales_from_config(TopoConfig(), V).reshape(V, 6)
+    scales = torch.from_numpy(np.ascontiguousarray(fs[:, :2])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    normal_ = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    chance = lambda p, *shape: torch.rand(shape, generator=gen, device=dev) > p  # noqa: E731
+    report = None
+    for end in ("2015-12-31", "2018-12-31"):
+        layout = month_layout(get_days_metadata("2015-01-01", end))
+        dpm, ndays = layout.dpm, len(layout.slot_of_day)
+        slot = torch.from_numpy(layout.slot_of_day.astype(np.int32)).to(dev)
+        Y = normal_(V, N_STATIONS, 12 * dpm) * 3.0
+        for N in (1, 12):
+            idx = np.stack([idx64[:, (np.arange(K) + m) % 64] for m in range(N)])
+            idx[:, ::3, 1] = idx[:, ::3, 0]
+            idx[:, 5::11, 2] = -1
+            idx[:, 7::13, K - 1] = N_STATIONS + 7
+            idx = torch.from_numpy(np.ascontiguousarray(idx)).to(dev)
+            mask = chance(0.05, N, C, K)
+            normal = normal_(1, 12, C) * 5.0 + 10.0
+            normal = torch.cat([normal, normal + 0.2])
+            ok = chance(0.03, V, 12, C)
+            for G in (1, 2):
+                gains = normal_(G, N, C, K) * 0.1
+                args = (idx, mask, gains, Y, normal, ok, slot, scales)
+                got = torch.full((V * (ndays + 24), C), 12345, dtype=torch.int16, device=dev)
+                want = got.clone()
+                kern = lambda: scatter_daily_packed(*args, got, reconcile=True)  # noqa: E731
+                plain = lambda: scatter_daily_packed_ref(*args, want, reconcile=True)  # noqa: E731
+                parts = lambda: _packed_by_parts(*args, True)  # noqa: E731
+                kern(), plain()
+                torch.cuda.synchronize()
+                g = got.view(V, ndays + 24, C).int()
+                w = want.view(V, ndays + 24, C).int()
+                if not bool((g[:, ndays:] == 12345).all()):
+                    raise AssertionError("scatter_daily_packed wrote outside the daily rows")
+                g, w = g[:, :ndays], w[:, :ndays]
+                if not torch.equal(g == -32768, w == -32768):
+                    raise AssertionError("scatter_daily_packed: sentinel positions differ")
+                d = (g - w).abs()
+                err, share = int(d.max()), float((d > 0).float().mean())
+                both = (g[0] != -32768) & (g[1] != -32768)
+                viol = int((both & (g[1] < g[0])).sum())
+                n_same = int((both & (g[1] == g[0])).sum())
+                if err > 1 or share >= 0.01 or viol or n_same == 0:
+                    raise AssertionError(
+                        f"scatter_daily_packed ndays={ndays} N={N} G={G}: max count difference "
+                        f"{err}, share differing {share:.5f}, {viol} cells with q_1 < q_0, "
+                        f"{n_same} reconciled")
+                p = parts().int()
+                if not (torch.equal(p == -32768, w == -32768) and int((p - w).abs().max()) <= 1):
+                    raise AssertionError("the float entry + plain packing disagrees")
+                del g, w, d, both, p
+                ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 1, warmup=0)
+                parts_ms = cuda_ms(parts, 2, warmup=0)
+                nbytes = (sum(a.numel() * a.element_size() for a in args)
+                          + V * ndays * C * 2)
+                bnd = bound(nbytes, 2.0 * K * C * V * 12 * dpm)
+                log(f"[kernels] scatter_daily_packed C={C} S={N_STATIONS} k={K} V={V} "
+                    f"ndays={ndays} dpm={dpm} N={N} G={G} reconcile on: max count difference "
+                    f"{err}, share of counts differing {share:.6f}, sentinels identical "
+                    f"({float((~ok).float().mean()):.4f} not ok), {n_same} reconciled pairs, "
+                    f"0 with q_1 < q_0; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                    f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the float entry + plain "
+                    f"torch packing {parts_ms:.4f} ms "
+                    f"(int16 write {V * ndays * C * 2 / ms / 1e6:.1f} GB/s)")
+                if (ndays, N, G) == (NDAYS, 1, 1):
+                    report = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                                  library_ms=None, **bnd)
+                del args, gains, got, want
+            del idx, mask, normal, ok
+        del Y
     return report
 
 
@@ -581,6 +772,23 @@ def _oracle_check(world, days, rows, cols, picks, daily, normal, se, day_ok=None
     return len(done), errs, time.perf_counter() - t0
 
 
+def _tile_kernels():
+    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
+    from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_packed
+
+    return dict(krig_normals=krig_normals_indexed, scatter_daily=scatter_daily,
+                scatter_daily_packed=scatter_daily_packed)
+
+
+def _zero_launches():
+    for wrapper in _tile_kernels().values():
+        wrapper.launches = 0
+
+
+def _read_launches():
+    return {name: wrapper.launches for name, wrapper in _tile_kernels().items()}
+
+
 def phase_slice(world, days, dev):
     import torch
 
@@ -588,9 +796,6 @@ def phase_slice(world, days, dev):
     from topotpu_torch.interp.convert import fixed_scales_from_config
     from topotpu_torch.interp.point import interp_tile_pair_flat
     from topotpu_torch.io.synthetic import tile_inputs_from_world
-    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
-    from topotpu_torch.kernels.scatter_daily import scatter_daily
-
     C = N_SIDE * N_SIDE
     rows, cols = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
     ti, layout = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
@@ -602,13 +807,12 @@ def phase_slice(world, days, dev):
         fixed_scales=fixed, reconcile=True,
     )
 
-    krig_normals_indexed.launches = scatter_daily.launches = 0
+    _zero_launches()
     out = step()
     torch.cuda.synchronize()
-    launches = dict(krig_normals=krig_normals_indexed.launches,
-                    scatter_daily=scatter_daily.launches)
-    # one launch covers the step's 24 systems
-    if launches != dict(krig_normals=1, scatter_daily=1):
+    launches = _read_launches()
+    # one launch covers the step's 24 systems, one the whole daily product
+    if launches != dict(krig_normals=1, scatter_daily=0, scatter_daily_packed=1):
         raise RuntimeError(f"main path did not run through the kernels: {launches}")
 
     walls = []
@@ -647,7 +851,8 @@ def phase_per_var(world, days, dev):
     """The paired step with per-variable neighbourhood sizes (what the nnghs
     optimisation hands to production) on one 128 x 128 tile: each variable's
     12 systems take a launch of ``krig_normals`` of their own, masked beyond
-    that variable's k. Var A keeps k = ka = 32 and is held against the
+    that variable's k, and one ``scatter_daily_packed`` launch reads each
+    variable's own gain rows. Var A keeps k = ka = 32 and is held against the
     float64 oracle; var B runs at k = 24, ka = 16."""
     import torch
 
@@ -655,23 +860,21 @@ def phase_per_var(world, days, dev):
     from topotpu_torch.interp.convert import fixed_scales_from_config
     from topotpu_torch.interp.point import interp_tile_pair_flat
     from topotpu_torch.io.synthetic import tile_inputs_from_world
-    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
-    from topotpu_torch.kernels.scatter_daily import scatter_daily
 
     tile = TopoConfig().tile_rows
     rows, cols = np.unravel_index(np.arange(tile * tile), (tile, tile))
     ti, layout = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
     params = InterpParams(k_neighbors=K, k_per_var=(K, 24), ka_per_var=(K, 16))
     fixed = fixed_scales_from_config(TopoConfig(), 2)
-    krig_normals_indexed.launches = scatter_daily.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     out = interp_tile_pair_flat(_pair(ti, 9.0, 0.85), layout.slot_of_day, params,
                                 shared_validity=True, fixed_scales=fixed, reconcile=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(krig_normals=krig_normals_indexed.launches,
-                    scatter_daily=scatter_daily.launches)
-    if launches != dict(krig_normals=2, scatter_daily=2):  # one a variable, one a ka
+    launches = _read_launches()
+    # krig_normals once a variable; one packed launch reads both variables' gain rows
+    if launches != dict(krig_normals=2, scatter_daily=0, scatter_daily_packed=1):
         raise RuntimeError(f"per-variable step: launches {launches}")
     buf = out.buf.cpu().numpy()
     daily, normal, se = _decode(buf, fixed, 0)
@@ -703,7 +906,12 @@ def phase_reconcile(world, days, dev):
     params = InterpParams(k_neighbors=K)
     fixed = fixed_scales_from_config(TopoConfig(), 2)
 
+    _zero_launches()
     res_a, res_b = interp_tile_pair(pair, params, shared_validity=True)
+    launches = _read_launches()
+    # the float step: one launch of the float entry over both variables' days
+    if launches != dict(krig_normals=1, scatter_daily=1, scatter_daily_packed=0):
+        raise RuntimeError(f"float paired step: launches {launches}")
     both = (res_a.ok & res_b.ok)[:, :, None]
     cross = (both & (res_b.daily < res_a.daily)).cpu().numpy()  # (12, C, dpm)
     n_cross = int(cross.sum())
@@ -724,9 +932,11 @@ def phase_reconcile(world, days, dev):
     picks = np.random.default_rng(6).choice(tile * tile, 64, replace=False)
     n, errs, _ = _oracle_check(world, days, rows, cols, picks, daily, normal, se, day_ok)
     log(f"[reconcile] {tile}x{tile} tile, var B = A + 0.2 C, anomalies x 0.5: "
+        f"float step launches {launches}; "
         f"{n_cross} crossings before reconcile, {viol} lattice violations after; "
         f"oracle on {n} cells (uncrossed days): max err normal {errs['normal']:.3e} "
         f"daily {errs['daily']:.3e} C")
+    return launches
 
 
 def profile_breakdown(tag, what, fn):
@@ -751,7 +961,7 @@ def profile_breakdown(tag, what, fn):
         log(f"[{tag}] the profiler recorded no device time")
         return []
     total = sum(dev_us(e) for e in events)
-    ours = sum(dev_us(e) for e in events if any(f"{k}_kernel" in e.key for k in KERNELS))
+    ours = sum(dev_us(e) for e in events if any(k in e.key for k in KERNELS))
     top = sorted(events, key=lambda e: -dev_us(e))[:8]
     parts = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
     log(f"[{tag}] {what} under the profiler: wall {wall_us / 1e3:.3f} ms, device "
@@ -770,13 +980,21 @@ def phase_profile(step):
     if not events:
         return
     pick = lambda word: [(ms, n) for key, ms, n in events if word in key]  # noqa: E731
-    krig, copies, cats = pick("krig_normals"), pick("copy"), pick("CatArrayBatchedCopy")
-    copies = [c for c in copies if c not in cats]
+    krig, packed, floats = (pick(w) for w in ("krig_normals", "scatter_daily_packed_kernel",
+                                              "scatter_daily_kernel"))
+    cats = pick("CatArrayBatchedCopy")
+    copies = [c for c in pick("copy") if c not in cats]
+    elementwise = [e for e in pick("elementwise") if e not in copies]
     total = lambda sel: (sum(ms for ms, _ in sel), sum(n for _, n in sel))  # noqa: E731
-    log("[profile] by kind: krig_normals %.3f ms in %d launches; copy kernels %.3f ms in %d; "
-        "cat %.3f ms in %d" % (*total(krig), *total(copies), *total(cats)))
-    if total(krig)[1] != 1:
-        raise RuntimeError(f"the step launched krig_normals {total(krig)[1]} times, not once")
+    log("[profile] by kind: krig_normals %.3f ms in %d launches; scatter_daily_packed %.3f ms "
+        "in %d; the float entry scatter_daily %.3f ms in %d; copy kernels %.3f ms in %d; cat "
+        "%.3f ms in %d; elementwise kernels %.3f ms in %d; all kernels %.3f ms in %d launches"
+        % (*total(krig), *total(packed), *total(floats), *total(copies), *total(cats),
+           *total(elementwise), *total([(ms, n) for _, ms, n in events])))
+    counts = (total(krig)[1], total(packed)[1], total(floats)[1])
+    if counts != (1, 1, 0):
+        raise RuntimeError(f"the step launched krig_normals, the packed and the float daily "
+                           f"kernel {counts} times, not (1, 1, 0)")
 
 
 def _wsse(gamma, h, npairs, nug, ps, rg):
@@ -933,9 +1151,10 @@ def phase_stations(dev):
 
     # the indexed kernel at the x-val runs' own shapes (12 LOO neighbourhoods,
     # the stations as cells and as table rows, one variable) against its
-    # plain version, at the x-val's k and at one small k of the nnghs sweep
+    # plain version, at every k of the nnghs sweep; up to k = 24 float64
+    # decides by statistics (see _compare_krig)
     st_dev = xval._stations(dev, *st.krig())
-    for k, ill in ((K, False), (16, True)):
+    for k, ill in ((8, True), (16, True), (24, True), (K, False), (48, False)):
         t = time.perf_counter()
         _, (*args, pairs, shared) = xval._loo_systems(st_dev, k)
         err, n_not_ok, e64_kern, e64_plain = _compare_indexed(args, pairs, not shared, k, ill)
@@ -1001,8 +1220,12 @@ def phase_stations(dev):
     log(f"[stations] krig_normals launches {counts}; walls "
         + " ".join(f"{n} {w:.3f} s" for n, w in walls.items())
         + f"; peak device memory {peak:.3f} GiB")
-    profile_breakdown("stations", "krig-params", lambda: build_krig_params(
-        st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev))
+    # the profiler takes ~50 s to read the trace of all 50 Gauss-Newton
+    # iterations (~40,000 small kernels); 5 of them show the same kernels
+    vp5 = dataclasses.replace(vp, gn_iters=5)
+    profile_breakdown("stations", "krig-params with 5 of its 50 GN iterations",
+                      lambda: build_krig_params(st.lon, st.lat, st.elev, st.tdi, st.lst,
+                                                st.norm, st.valid, vp5, ip, dev))
     profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
         *st.krig(), st.anoms, st.month_idx, p32, dev))
     return sum(counts.values()), world
@@ -1198,14 +1421,18 @@ def phase_infill(world, dev):
     mask_dev = to_tensor(mask, dev, torch.bool)
     midx_dev = to_tensor(days.month_idx, dev, torch.int64)
     cols_dev = torch.from_numpy(cols).to(dev)
-    profile_breakdown("infill", "the EM batch loop over two batches", lambda: [
-        pipeline._infill_batch(obs_dev, mask_dev, cols_dev[h], midx_dev, n_comp,
-                               params.max_iters, params.tol)
-        for h in halves])
+    # one batch and 50 iterations: the trace of two batches of 200 (~18,000
+    # small kernels) takes the profiler tens of seconds to read
+    profile_breakdown("infill", "the EM loop of one batch, 50 iterations", lambda: (
+        pipeline._infill_batch(obs_dev, mask_dev, cols_dev[halves[0]], midx_dev, n_comp,
+                               50, params.tol)))
     log(f"[infill] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
+    mode = sys.argv[1] if sys.argv[1:] else "all"
+    if mode not in ("all", "kernels", "scatter") or sys.argv[2:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, 'kernels' or 'scatter'")
     t_start = time.perf_counter()
     dev, name = phase_environment()
     from topotpu_torch.core.dates import get_days_metadata
@@ -1217,20 +1444,25 @@ def main():
         t_phase.append(time.perf_counter())
         log(f"[phase] {name} took {t_phase[-1] - t_phase[-2]:.1f} s")
 
-    phase_build()
+    phase_build(("scatter_daily",) if mode == "scatter" else KERNELS)
     lap("build")
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
     days = get_days_metadata("2015-01-01", "2015-12-31")
     rows64 = neighbour_planes(world)
+    if mode == "scatter":
+        scatter_lines(rows64, dev)
+        return
     report = phase_kernels(world, days, rows64, dev)
     lap("kernels")
+    if mode == "kernels":
+        return
     ok_report, ok_launches = phase_ok_solve(rows64, dev)
     del rows64
     launches, step = phase_slice(world, days, dev)
-    for kernel, n in phase_per_var(world, days, dev).items():
-        launches[kernel] += n
-    phase_reconcile(world, days, dev)
+    for more in (phase_per_var(world, days, dev), phase_reconcile(world, days, dev)):
+        for kernel, n in more.items():
+            launches[kernel] += n
     phase_profile(step)
     del step
     lap("ok_solve, slice, per-var, reconcile, profile")
@@ -1250,6 +1482,8 @@ def main():
                       "topotpu/kernels/pallas_krig.py:445"),
         scatter_daily=("topotpu_torch/kernels/csrc/scatter_daily.cu",
                        "topotpu/kernels/pallas_scatter.py:67"),
+        scatter_daily_packed=("topotpu_torch/kernels/csrc/scatter_daily.cu",
+                              "topotpu/kernels/pallas_scatter.py:67"),
         ok_solve_fused=("topotpu_torch/kernels/csrc/ok_solve.cu",
                         "topotpu/kernels/pallas_krig.py:584"),
         ok_solve_fused_xyz=("topotpu_torch/kernels/csrc/ok_solve.cu",

@@ -7,7 +7,8 @@ This file imports nothing of the JAX package.
 Tolerances are those of the CPU parity tests: normal and trend rtol 1e-4,
 atol 1e-3 (2e-3 above k = 32), variance rtol 1e-3 atol 1e-4, variogram and
 gains rtol 1e-4 atol 1e-5, identical ok flags; the daily contraction rtol
-and atol 1e-5; the OK solve's weights rtol 2e-4 atol 2e-5 (5e-5 above
+and atol 1e-5, its packed entry by the integer rule (identical sentinels, at
+most one int16 count apart, under 1 % of counts differing); the OK solve's weights rtol 2e-4 atol 2e-5 (5e-5 above
 k = 32), variance rtol 2e-3 atol 1e-4, identical ok flags and masked
 weights exactly 0 (``tests/test_pallas_krig.py``'s).
 """
@@ -26,7 +27,12 @@ from topotpu_torch.kernels.ok_solve_fused import (
     ok_solve_fused_xyz,
     ok_solve_fused_xyz_ref,
 )
-from topotpu_torch.kernels.scatter_daily import scatter_daily, scatter_daily_ref
+from topotpu_torch.kernels.scatter_daily import (
+    scatter_daily,
+    scatter_daily_packed,
+    scatter_daily_packed_ref,
+    scatter_daily_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -151,7 +157,8 @@ def test_krig_normals_kernel_matches_plain(dev, k, C, weight_kernel):
 def test_krig_normals_indexed_masked_stray_index_is_inert(dev):
     """The kernel clamps an index outside the table instead of reading
     there. In a masked slot the clamped row is inert: the same bits as with
-    any valid index in that slot."""
+    any valid index in that slot. In a valid slot the system is solved with
+    the first or last row, as the plain version solves it."""
     idx, dist, mask, table, cell = _indexed(dev, 200, 16, False)
     pairs = [(0, 0), (6, 1)]
     want = krig_normals_indexed(idx, dist, mask, table, cell, pairs, True)
@@ -163,22 +170,155 @@ def test_krig_normals_indexed_masked_stray_index_is_inert(dev):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
+    S = table.shape[0]
+    stray[0, ::4, 1] = -1  # unmasked slots
+    stray[0, 1::4, 5] = S
+    stray[0, 2::4, 9] = S + 7
+    assert int((((stray < 0) | (stray >= S)) & mask).sum()) > 100
+    head, gains = krig_normals_indexed(stray, dist, mask, table, cell, pairs, True)
+    for s_idx in (stray, stray.clamp(0, S - 1)):
+        whead, wgains = krig_normals_indexed_ref(s_idx, dist, mask, table, cell, pairs, True)
+        torch.testing.assert_close(head[..., 2], whead[..., 2], rtol=0, atol=0)
+        ok = whead[..., 2] > 0.5
+        for col, rtol, atol in ((0, 1e-4, 1e-3), (3, 1e-4, 1e-3), (1, 1e-3, 1e-4)):
+            torch.testing.assert_close(head[..., col][ok], whead[..., col][ok],
+                                       rtol=rtol, atol=atol)
+        torch.testing.assert_close(gains[0][ok.all(0)], wgains[0][ok.all(0)],
+                                   rtol=1e-4, atol=1e-5)
+    assert not torch.equal(torch.nan_to_num(head), torch.nan_to_num(want[0]))
 
-@pytest.mark.parametrize("C, S, k, D", [(1, 5, 1, 1), (1000, 96, 12, 31), (777, 512, 32, 2977)])
-def test_scatter_daily_kernel_matches_plain(dev, C, S, k, D):
-    rng = np.random.default_rng(1)
-    idx = rng.integers(0, S, (k, C)).astype(np.int32)
-    idx[min(1, k - 1)] = idx[0]
-    planes = [
+
+def _scatter_case(dev, C, S, k, D, i64, seed=1):
+    """(idx, gains, mask, Y) on the card with duplicate and stray indices."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, S, (C, k)).astype(np.int64 if i64 else np.int32)
+    idx[:, min(1, k - 1)] = idx[:, 0]
+    idx[::5, 0] = -1
+    idx[1::7, k - 1] = S
+    idx[2::9, k // 2] = S + 7
+    return [
         torch.from_numpy(idx).to(dev),
-        torch.from_numpy(rng.normal(size=(k, C)).astype(np.float32)).to(dev),
-        torch.from_numpy((rng.uniform(size=(k, C)) > 0.1).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.normal(size=(C, k)).astype(np.float32)).to(dev),
+        torch.from_numpy(rng.uniform(size=(C, k)) > 0.1).to(dev),
         torch.from_numpy(rng.normal(size=(S, D)).astype(np.float32)).to(dev),
     ]
-    got = scatter_daily(*planes)
-    want = scatter_daily_ref(*planes)
+
+
+@pytest.mark.parametrize("C, S, k, D, i64", [
+    (1, 5, 1, 1, False), (1000, 96, 12, 31, True), (777, 512, 32, 2977, False),
+    (777, 512, 32, 2976, True), (130, 5, 64, 744, False), (65, 9, 3, 6, True),
+])
+def test_scatter_daily_kernel_matches_plain(dev, C, S, k, D, i64):
+    args = _scatter_case(dev, C, S, k, D, i64)
+    n0 = scatter_daily.launches
+    got = scatter_daily(*args)
+    assert scatter_daily.launches == n0 + 1
+    want = scatter_daily_ref(*args)
     torch.cuda.synchronize()
+    assert got.shape == (C, D) and got.dtype == torch.float32
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    # a stray index adds nothing: the same bits as with that slot masked
+    idx, gains, mask, Y = args
+    stray = (idx < 0) | (idx >= S)
+    masked = scatter_daily(idx.clamp(0, S - 1), gains, mask & ~stray, Y)
+    assert torch.equal(got, masked)
+
+
+def _packed_case(dev, C, S, k, dpm, ndays, N, G, V, i64, seed=2):
+    """Packed-entry arguments on the card: duplicate and stray indices, masked
+    slots, not-ok cells, pad slots, a second variable that crosses the first,
+    one lattice for both (so a reconciled pair lands on one point)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, S, (N, C, k)).astype(np.int64 if i64 else np.int32)
+    idx[..., min(1, k - 1)] = idx[..., 0]
+    idx[:, ::5, 0] = -1
+    idx[:, 1::7, k - 1] = S + 3
+    gains = (rng.normal(size=(G, N, C, k)) * 0.3).astype(np.float32)
+    mask = rng.uniform(size=(N, C, k)) > 0.1
+    Y = (rng.normal(size=(V, S, 12 * dpm)) * 3.0).astype(np.float32)
+    normal = (rng.normal(size=(V, 12, C)) * 5.0 + 10.0).astype(np.float32)
+    if V == 2:
+        normal[1] = normal[0] + 0.3
+    normal[0, :, 0] = 1.0e4  # clips
+    ok = rng.uniform(size=(V, 12, C)) > 0.15
+    ok[0, :, 0] = True
+    month = np.arange(ndays) * 12 // ndays  # months of unequal length, none over dpm
+    pos = np.zeros(12, int)
+    slot = np.empty(ndays, np.int32)
+    for t, m in enumerate(month):
+        slot[t] = m * dpm + pos[m]
+        pos[m] += 1
+    scales = np.tile(np.array([[160.0 / 65500.0, 10.0]], np.float32), (V, 1))
+    return [torch.from_numpy(a).to(dev)
+            for a in (idx, mask, gains, Y, normal, ok, slot, scales)]
+
+
+@pytest.mark.parametrize("C, S, k, dpm, ndays, N, G, V, i64", [
+    (1, 5, 1, 1, 12, 1, 1, 1, False), (777, 512, 32, 31, 365, 1, 1, 2, True),
+    (777, 512, 32, 28, 300, 12, 2, 2, False), (130, 5, 7, 124, 1461, 12, 1, 2, True),
+    (64, 40, 16, 31, 365, 1, 2, 2, False), (999, 96, 12, 124, 1461, 1, 1, 1, True),
+    (333, 96, 64, 29, 340, 12, 1, 1, False),
+])
+def test_scatter_daily_packed_kernel_matches_plain(dev, C, S, k, dpm, ndays, N, G, V, i64):
+    args = _packed_case(dev, C, S, k, dpm, ndays, N, G, V, i64)
+    for reconcile in ((False, True) if V == 2 else (False,)):
+        fill = 12345
+        got = torch.full((V * (ndays + 24), C), fill, dtype=torch.int16, device=dev)
+        want = got.clone()
+        n0 = scatter_daily_packed.launches
+        assert scatter_daily_packed(*args, got, reconcile=reconcile) is got
+        assert scatter_daily_packed.launches == n0 + 1
+        scatter_daily_packed_ref(*args, want, reconcile=reconcile)
+        torch.cuda.synchronize()
+        g = got.cpu().numpy().astype(np.int64).reshape(V, ndays + 24, C)
+        w = want.cpu().numpy().astype(np.int64).reshape(V, ndays + 24, C)
+        assert (g[:, ndays:] == fill).all()  # normal and se rows are not touched
+        g, w = g[:, :ndays], w[:, :ndays]
+        assert not (w == fill).any()
+        np.testing.assert_array_equal(g == -32768, w == -32768)
+        assert (w == 32767).any() and (C == 1 or (w == -32768).any())
+        assert np.abs(g - w).max() <= 1
+        assert np.mean(g != w) < 0.01
+        if reconcile:
+            both = (g[0] != -32768) & (g[1] != -32768)
+            assert both.any() and not np.any(both & (g[1] < g[0]))
+
+
+def test_scatter_wrappers_refuse_bad_inputs(dev):
+    idx, gains, mask, Y = _scatter_case(dev, 64, 20, 8, 31, False)
+    with pytest.raises(TypeError):
+        scatter_daily(idx, gains, mask.float(), Y)
+    with pytest.raises(TypeError):
+        scatter_daily(idx.short(), gains, mask, Y)
+    with pytest.raises(TypeError):
+        scatter_daily(idx, gains.double(), mask, Y)
+    with pytest.raises(ValueError, match="shape"):
+        scatter_daily(idx, gains[:, :7], mask, Y)
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_daily(idx, gains, mask, Y.T.contiguous().T)
+    with pytest.raises(ValueError, match="devices"):
+        scatter_daily(idx, gains, mask, Y.cpu())
+    names = ("idx", "mask", "gains", "Y", "normal", "ok", "slot_of_day", "scales")
+    a = dict(zip(names, _packed_case(dev, 64, 20, 8, 31, 365, 1, 1, 2, False)))
+    out = torch.empty((2 * (365 + 24), 64), dtype=torch.int16, device=dev)
+
+    def call(out=out, **swap):
+        return scatter_daily_packed(*({**a, **swap}[n] for n in names), out)
+
+    with pytest.raises(TypeError):
+        call(slot_of_day=a["slot_of_day"].long())
+    with pytest.raises(TypeError):
+        call(ok=a["ok"].float())
+    with pytest.raises(TypeError):
+        call(out=out.int())
+    with pytest.raises(TypeError):
+        call(mask=a["mask"].to(torch.uint8))
+    with pytest.raises(ValueError, match="shape"):
+        call(out=out[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(normal=a["normal"].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="devices"):
+        call(scales=a["scales"].cpu())
 
 
 def _ok_inputs(dev, B, k, seed=2):

@@ -241,6 +241,28 @@ def test_masked_slots_are_inert():
     torch.testing.assert_close(gains[..., : k - cut], want_g, rtol=1e-5, atol=1e-6)
 
 
+def test_stray_indices_are_clamped_into_the_table():
+    """An index outside the table reads its first or last row, as the CUDA
+    kernel clamps it (and as a ``jnp`` gather does): the plain version on
+    stray indices, masked and unmasked, equals itself on the clamped copy."""
+    idx, dist, mask, table, cell = map(torch.from_numpy, _indexed_case(6, 48, 16, False))
+    S = table.shape[0]
+    stray = idx.clone()
+    stray[0, ::4, 1] = -1       # valid slots
+    stray[0, 1::4, 5] = S
+    stray[0, 2::4, 9] = S + 7
+    stray[~mask] = -3           # masked slots
+    assert int((((stray < 0) | (stray >= S)) & mask).sum()) > 20 and int((~mask).sum()) > 0
+    pairs = [(0, 0), (6, 1)]
+    got = kn.krig_normals_indexed(stray, dist, mask, table, cell, pairs, True)
+    want = kn.krig_normals_indexed(stray.clamp(0, S - 1), dist, mask, table, cell, pairs, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    # and the clamp is not a no-op: the systems differ from the unstrayed ones
+    base = kn.krig_normals_indexed(idx, dist, mask, table, cell, pairs, True)
+    assert not torch.equal(torch.nan_to_num(got[0]), torch.nan_to_num(base[0]))
+
+
 def test_indexed_int32_and_single_system():
     """int32 indices answer as int64, one system alone as in a list, and a
     system's place in the list does not matter."""

@@ -119,6 +119,55 @@ def test_pair_flat_matches_jax(case, shared_validity):
     assert not np.any(both & (b < a))
 
 
+@pytest.mark.parametrize("shared_validity", [True, False])
+def test_pair_flat_with_per_variable_k_matches_jax(case, shared_validity):
+    """``k_per_var`` / ``ka_per_var`` on the fixed-lattice flat form: each
+    variable's kriging systems are masked beyond its own k and its gain rows
+    end at its own ka, and one packed daily call serves both. Against the
+    JAX package's flat step: identical sentinels; dailies and normals within
+    one step + 5e-3 C on 99 % of values and one step + 2e-2 C on all (below
+    k = 16 the float32 trend design parts two implementations by more than
+    at k = 16: 7e-3 C here at k = 14, 2.7e-2 C at k = 12, on an AMD EPYC
+    host), se within one step + 2e-3 C."""
+    pair, layout = case
+    if not shared_validity:
+        valid = pair.geom.stn_valid.copy()
+        valid[17, 4] = False
+        pair = pair._replace(geom=pair.geom._replace(stn_valid=valid))
+    params = InterpParams(k_neighbors=K, k_per_var=(K, 14), ka_per_var=(8, K))
+    fs = fixed_scales_from_config(TopoConfig(), 2)
+    want = jpoint.interp_tile_pair_flat(
+        pair, jnp.asarray(layout.slot_of_day), params, shared_validity=shared_validity,
+        fixed_scales=jnp.asarray(fs), reconcile=True,
+    )
+    got = tpoint.interp_tile_pair_flat(
+        pair_inputs_from_numpy(pair, "cpu"), layout.slot_of_day, params,
+        shared_validity=shared_validity, fixed_scales=fs, reconcile=True,
+    )
+    buf = got.buf.numpy()
+    np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
+    w = np.asarray(want.buf).astype(np.int32)
+    g = buf.astype(np.int32)
+    assert g.shape == w.shape == (2 * (NDAYS + 24), 256)
+    np.testing.assert_array_equal(g == -32768, w == -32768)
+    d = np.abs(g - w).reshape(2, NDAYS + 24, 256)
+    for v in range(2):
+        step, se_step = fs[6 * v], fs[6 * v + 4]
+        for rows in (d[v, :NDAYS], d[v, NDAYS : NDAYS + 12]):
+            assert np.quantile(rows, 0.99) <= 1 + int(5e-3 / step)
+            assert rows.max() <= 1 + int(2e-2 / step)
+        assert d[v, NDAYS + 12 :].max() <= 1 + int(2e-3 / se_step)
+    a, b = g[:NDAYS], g[NDAYS + 24 : 2 * NDAYS + 24]
+    both = (a != -32768) & (b != -32768)
+    assert both.any() and not np.any(both & (b < a))
+    # the per-variable sizes are in effect: the uniform step gives other dailies
+    uniform = tpoint.interp_tile_pair_flat(
+        pair_inputs_from_numpy(pair, "cpu"), layout.slot_of_day, InterpParams(k_neighbors=K),
+        shared_validity=shared_validity, fixed_scales=fs, reconcile=True,
+    ).buf.numpy()
+    assert np.mean(uniform[:NDAYS] != buf[:NDAYS]) > 0.5
+
+
 def test_zero_month_validity_flags_that_month(case):
     """No valid station in one month: that month is not ok (sentinels in
     its normals and days); the other months stay finite."""
@@ -138,6 +187,12 @@ def test_zero_month_validity_flags_that_month(case):
         geom, layout.slot_of_day, InterpParams(k_neighbors=K),
         fixed_scales=fixed_scales_from_config(TopoConfig(), 1),
     ).buf.numpy()
+    # a day slot outside the month-grouped axis is refused before any work
+    bad = layout.slot_of_day.copy()
+    bad[5] = 12 * layout.dpm
+    with pytest.raises(ValueError, match="slot_of_day"):
+        tpoint.interp_tile_flat(geom, bad, InterpParams(k_neighbors=K),
+                                fixed_scales=fixed_scales_from_config(TopoConfig(), 1))
     july = layout.month_idx == 6
     assert (flat[:NDAYS][july] == -32768).all()
     assert (flat[:NDAYS][~july] != -32768).all()

@@ -5,15 +5,25 @@ selection, the fused regression-kriging normals and anomaly gains, the daily
 anomaly contraction, and (in the flat forms) the int16 packing onto a
 run-global lattice in calendar order. Dailies are month-grouped: the host
 pads each month to ``dpm`` day slots, so station anomalies arrive as
-(12, S, dpm) and one contraction covers a month (or, with month-invariant
-validity, the whole year of every variable at once).
+(12, S, dpm).
+
+Every form runs the same kriging half (``_krig_tile_multi``): tables,
+neighbourhoods, and all 12 x V systems in one ``krig_normals_indexed`` call
+(one a variable with per-variable neighbourhood sizes). The daily half has
+two forms. The flat forms on a caller's fixed lattice (``fixed_scales``, the
+production mode) allocate the step's int16 buffer once and fill its daily
+rows with one ``scatter_daily_packed`` call, whatever the validity mode and
+the neighbourhood sizes: contraction, + normal, reconcile, quantisation and
+calendar order happen there, and no float daily array exists. The float
+forms (``interp_tile``, ``interp_tile_pair``, ``interp_points``, and the flat
+forms without ``fixed_scales``, whose tile-wide min/max needs the floats
+first) call ``scatter_daily``.
 
 Dispatch follows the device of the inputs and nothing else. On CUDA tensors
-the normals chain launches ``kernels/csrc/krig_normals.cu`` (all 12 x V
-systems of a step in one launch) and the daily step launches
-``kernels/csrc/scatter_daily.cu``; on CPU tensors both take their plain
-torch versions. ``InterpParams.use_pallas`` is read by nothing
-in the port, and there is no other switch.
+the wrappers launch ``kernels/csrc/krig_normals.cu`` and
+``kernels/csrc/scatter_daily.cu``; on CPU tensors they take their plain
+torch versions. ``InterpParams.use_pallas`` is read by nothing in the port,
+and there is no other switch.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import torch
 from topotpu_torch.core.config import InterpParams
 from topotpu_torch.core.dates import DaysMetadata
 from topotpu_torch.geo.distance import pairwise_great_circle_km, unit_xyz
-from topotpu_torch.geo.neighbors import Neighborhood, select_neighbors
+from topotpu_torch.geo.neighbors import select_neighbors
 from topotpu_torch.interp.anoms import anomaly_gain_rows
 from topotpu_torch.kernels.krig_normals import (
     cell_table,
@@ -34,9 +44,12 @@ from topotpu_torch.kernels.krig_normals import (
     station_table,
     system_columns,
 )
-from topotpu_torch.kernels.scatter_daily import scatter_daily
-
-PACK_SENTINEL = -32768  # int16 fill for non-ok cells
+from topotpu_torch.kernels.scatter_daily import (
+    PACK_SENTINEL,
+    quantize_plane_fixed as _quantize_plane_fixed,
+    scatter_daily,
+    scatter_daily_packed,
+)
 
 
 class TileInputs(NamedTuple):
@@ -116,14 +129,6 @@ def _quantize_plane(x, valid):
     return q, scale.to(torch.float32), offset.to(torch.float32)
 
 
-def _quantize_plane_fixed(x, valid, scale, offset):
-    """int16-quantize x on a caller-chosen (run-global) scale/offset lattice;
-    values outside the window clip to its bounds."""
-    q = torch.clamp(torch.round((x - offset) / scale), -32767, 32767)
-    q = q.to(torch.int16)
-    return torch.where(valid, q, torch.full_like(q, PACK_SENTINEL))
-
-
 def _local_xy_km(lon, lat, ref_lat_deg):
     """Equirectangular local offsets in km (the anomaly-GWR location
     covariates), scaled at the reference latitude."""
@@ -162,19 +167,32 @@ def tile_neighborhoods(inputs: TileInputs, k: int, shared_validity: bool) -> lis
     ]
 
 
-def _interp_tile_multi(
+class _TileKrig(NamedTuple):
+    """What the kriging half of a step hands to the daily half."""
+
+    normal: torch.Tensor  # (V, 12, C)
+    se: torch.Tensor      # (V, 12, C)
+    ok: torch.Tensor      # (V, 12, C) bool
+    vario: torch.Tensor   # (V, 12, C, 3)
+    idx: torch.Tensor     # (N, C, k) neighbourhoods, N = 1 (shared validity) or 12
+    mask: torch.Tensor    # (N, C, k) bool
+    gains: torch.Tensor   # (G, N, C, k): G = 1, every variable reads gains[0], or G = V;
+    #                       slots beyond a variable's anomaly neighbourhood size carry 0
+
+
+def _krig_tile_multi(
     inputs: TileInputs,
-    extra_vars: tuple,
+    all_vars: tuple,
     params: InterpParams,
     shared_validity: bool,
-) -> list:
-    """Interpolate 1 + len(extra_vars) variables on one tile geometry.
-    Returns one TileResult per variable.
+) -> _TileKrig:
+    """The kriging half of a step for the variables ``all_vars`` on one tile
+    geometry: normals, standard errors, ok flags, cell variograms, and the
+    neighbourhoods with their anomaly gain rows.
 
     Shared across variables: the (C, S) distance matrix, per-month top-k
-    selection, the station table, the anomaly gains (geometry only) and the
-    daily contraction. Per variable: the kriging solve and its slice of the
-    daily contraction.
+    selection, the station table and the anomaly gains (geometry only). Per
+    variable: the kriging solve.
 
     All kriging systems go through ``krig_normals_indexed``, which reads the
     neighbourhoods as ``select_neighbors`` leaves them and gathers from the
@@ -182,11 +200,6 @@ def _interp_tile_multi(
     (the usual case) the 12 x V systems take one call; with per-variable
     sizes (``k_per_var`` / ``ka_per_var``) each variable's 12 systems take
     a call of their own, masked beyond that variable's k."""
-    S = inputs.stn_lon.shape[0]
-    dtype = inputs.cell_lon.dtype
-    all_vars = (
-        VarFields(inputs.stn_norm, inputs.stn_vario, inputs.stn_anoms),
-    ) + tuple(extra_vars)
     V = len(all_vars)
     k_req = params.k_neighbors
 
@@ -217,134 +230,103 @@ def _interp_tile_multi(
         weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
     )
-
-    def _prefix(nbr, n):
-        return Neighborhood(
-            idx=nbr.idx[:, :n], dist=nbr.dist[:, :n], mask=nbr.mask[:, :n]
-        )
-
-    anom_cols = system_columns(table, cell_tab, 0, 0)  # month and variable play no part
-
-    def _gains_of(nbr, n):
-        """Gain rows of the n-slot prefix of a neighbourhood (plain torch),
-        from the three anomaly covariates of its stations."""
-        nbr_n = _prefix(nbr, n)
-        return anomaly_gain_rows(
-            nbr_n.dist, nbr_n.mask, anom_cols["acov"][nbr_n.idx], anom_cols["cell_acov"],
-            weight_kernel=params.weight_kernel, ridge=params.ridge,
-        ), nbr_n
-
-    normals = [[None] * 12 for _ in range(V)]
-    ses = [[None] * 12 for _ in range(V)]
-    oks = [[None] * 12 for _ in range(V)]
-    varios = [[None] * 12 for _ in range(V)]
     idx, dist, mask = (torch.stack([getattr(n, f) for n in nbrs])
                        for f in ("idx", "dist", "mask"))
+    anom_cols = system_columns(table, cell_tab, 0, 0)  # month and variable play no part
 
-    def _solve(pairs, mask):
-        """One call for the systems ``pairs``; fills their result slots and
-        returns the neighbourhoods' gain rows (at ``mask``)."""
-        head, gains = krig_normals_indexed(idx, dist, mask, table, cell_tab, pairs,
+    def _gains_of(ka):
+        """(N, C, k) gain rows of the ka-slot prefix of every neighbourhood
+        (plain torch), from the three anomaly covariates of its stations;
+        0 beyond the prefix."""
+        rows = torch.stack([
+            anomaly_gain_rows(
+                nbr.dist[:, :ka], nbr.mask[:, :ka], anom_cols["acov"][nbr.idx[:, :ka]],
+                anom_cols["cell_acov"], weight_kernel=params.weight_kernel, ridge=params.ridge,
+            )
+            for nbr in nbrs
+        ])
+        return torch.nn.functional.pad(rows, (0, k_req - ka))
+
+    def _solve(v_list, mask_v):
+        """One call for the 12 systems of each variable of ``v_list`` ->
+        heads (len(v_list), 12, C, 8) and the neighbourhoods' gain rows."""
+        pairs = [(m, v) for v in v_list for m in range(12)]
+        head, gains = krig_normals_indexed(idx, dist, mask_v, table, cell_tab, pairs,
                                            shared_validity, **solve_kw)
-        se = torch.sqrt(torch.clamp(head[..., 1], min=0.0))
-        for p, (m, v) in enumerate(pairs):
-            normals[v][m] = head[p, :, 0]
-            ses[v][m] = se[p]
-            oks[v][m] = (head[p, :, 2] > 0.5) & inputs.cell_mask
-            varios[v][m] = head[p, :, 4:7]
-        return gains
+        return head.view(len(v_list), 12, *head.shape[1:]), gains
 
     if uniform:
-        gains = _solve([(m, v) for m in range(12) for v in range(V)], mask)
-        gains_by_ka = {kas[0]: [(gains[i], nbr) if kas[0] == k_req else _gains_of(nbr, kas[0])
-                                for i, nbr in enumerate(nbrs)]}
+        head, gains = _solve(range(V), mask)
+        gains = (gains if kas[0] == k_req else _gains_of(kas[0]))[None]
     else:
         slots = torch.arange(k_req, device=table.device)
-        for v in range(V):
-            _solve([(m, v) for m in range(12)], mask & (slots < kvs[v]))
-        gains_by_ka = {ka: [_gains_of(nbr, ka) for nbr in nbrs] for ka in sorted(set(kas))}
-    # [m] -> [(gains, nbr)] per variable; variables of one ka share the tensors
-    gains_by_month = [[gains_by_ka[kas[v]][0 if shared_validity else m] for v in range(V)]
-                      for m in range(12)]
-
-    return _finish_tile_multi(
-        inputs, all_vars, shared_validity, normals, ses, oks, varios,
-        gains_by_month, S, dtype,
+        head = torch.cat([_solve([v], mask & (slots < kvs[v]))[0] for v in range(V)])
+        by_ka = {ka: _gains_of(ka) for ka in sorted(set(kas))}
+        gains = (by_ka[kas[0]][None] if len(by_ka) == 1
+                 else torch.stack([by_ka[ka] for ka in kas]))
+    return _TileKrig(
+        normal=head[..., 0],
+        se=torch.sqrt(torch.clamp(head[..., 1], min=0.0)),
+        ok=(head[..., 2] > 0.5) & inputs.cell_mask,
+        vario=head[..., 4:7],
+        idx=idx, mask=mask, gains=gains,
     )
 
 
-def _gain_groups(entries):
-    """Group variables that share one gain solve (the same tensor object), so
-    each group pays one contraction over its concatenated day axes."""
-    groups: list = []
-    for v, (g, nb) in enumerate(entries):
-        for grp in groups:
-            if grp[0] is g:
-                grp[2].append(v)
-                break
-        else:
-            groups.append((g, nb, [v]))
-    return groups
+def _all_vars(inputs: TileInputs, extra_vars: tuple) -> tuple:
+    return (VarFields(inputs.stn_norm, inputs.stn_vario, inputs.stn_anoms),) + tuple(extra_vars)
 
 
-def _scatter_args(gains, nbr, dtype):
-    """(k, C) planes for ``scatter_daily``: int32 idx, gains, 0/1 mask."""
-    return (
-        nbr.idx.T.to(torch.int32).contiguous(),
-        gains.T.contiguous(),
-        nbr.mask.T.to(dtype).contiguous(),
-    )
+def _interp_tile_multi(
+    inputs: TileInputs,
+    extra_vars: tuple,
+    params: InterpParams,
+    shared_validity: bool,
+) -> list:
+    """Interpolate 1 + len(extra_vars) variables on one tile geometry with
+    float dailies. Returns one TileResult per variable.
 
-
-def _finish_tile_multi(
-    inputs, all_vars, shared_validity, normals, ses, oks, varios,
-    gains_by_month, S, dtype,
-):
-    """Daily anomalies + per-variable TileResult assembly.
-
-    The daily step always goes through ``scatter_daily``: on CUDA tensors
-    that is the hand-written kernel, on CPU tensors its plain version. With
-    month-invariant validity the gains are the same in every month, so one
-    call per gain group covers every month and variable of the group."""
+    The daily step goes through ``scatter_daily``: on CUDA tensors that is
+    the hand-written kernel, on CPU tensors its plain version. Variables that
+    share their gain rows share a call over their concatenated day axes; with
+    month-invariant validity that call covers every month as well."""
+    all_vars = _all_vars(inputs, extra_vars)
+    kr = _krig_tile_multi(inputs, all_vars, params, shared_validity)
     V = len(all_vars)
+    S = inputs.stn_lon.shape[0]
+    C = inputs.cell_lon.shape[0]
+    dtype = inputs.cell_lon.dtype
     dpm = inputs.stn_anoms.shape[-1]
-    dailies = [[] for _ in range(V)]  # [v][m] (C, dpm)
-
-    if shared_validity:
-        for g0, nbr0, vs in _gain_groups(gains_by_month[0]):
-            Y_cat = torch.cat(
-                [all_vars[v].anoms.to(dtype).permute(1, 0, 2).reshape(S, 12 * dpm)
-                 for v in vs],
+    G = kr.gains.shape[0]
+    anoms = [None] * V  # [v] (12, C, dpm)
+    for g in range(G):
+        vs = list(range(V)) if G == 1 else [g]
+        if shared_validity:
+            Y = torch.cat(
+                [all_vars[v].anoms.to(dtype).permute(1, 0, 2).reshape(S, 12 * dpm) for v in vs],
                 dim=1,
-            ).contiguous()
-            anom_all = scatter_daily(*_scatter_args(g0, nbr0, dtype), Y_cat)
-            for j, v in enumerate(vs):
-                off = j * 12 * dpm
-                for m in range(12):
-                    dailies[v].append(
-                        normals[v][m][:, None]
-                        + anom_all[:, off + m * dpm : off + (m + 1) * dpm]
-                    )
-    else:
-        for m in range(12):
-            for gains, nbr_a, vs in _gain_groups(gains_by_month[m]):
-                Y_m = torch.cat(
-                    [all_vars[v].anoms[m].to(dtype) for v in vs], dim=1
-                ).contiguous()  # (S, len(vs) * dpm): one call serves the group
-                anom = scatter_daily(*_scatter_args(gains, nbr_a, dtype), Y_m)
-                for j, v in enumerate(vs):
-                    dailies[v].append(
-                        normals[v][m][:, None] + anom[:, j * dpm : (j + 1) * dpm]
-                    )
+            )
+            out = scatter_daily(kr.idx[0], kr.gains[g, 0], kr.mask[0], Y)
+            out = out.view(C, len(vs), 12, dpm).permute(1, 2, 0, 3)  # (vs, 12, C, dpm)
+        else:
+            out = torch.stack([
+                scatter_daily(
+                    kr.idx[m], kr.gains[g, m], kr.mask[m],
+                    torch.cat([all_vars[v].anoms[m].to(dtype) for v in vs], dim=1),
+                ).view(C, len(vs), dpm)
+                for m in range(12)
+            ]).permute(2, 0, 1, 3)
+        for j, v in enumerate(vs):
+            anoms[v] = out[j]
 
     dev = inputs.cell_lon.device
     return [
         TileResult(
-            normal=torch.stack(normals[v]),
-            se=torch.stack(ses[v]),
-            ok=torch.stack(oks[v]),
-            daily=torch.stack(dailies[v]).to(dtype),
-            vario=torch.stack(varios[v]),
+            normal=kr.normal[v],
+            se=kr.se[v],
+            ok=kr.ok[v],
+            daily=(kr.normal[v][:, :, None] + anoms[v]).to(dtype),
+            vario=kr.vario[v],
             daily_scale=torch.tensor(1.0, dtype=torch.float32, device=dev),
             daily_offset=torch.tensor(0.0, dtype=torch.float32, device=dev),
         )
@@ -382,34 +364,56 @@ def interp_tile_pair(
     return res[0], res[1]
 
 
-def _flatten_result(res: TileResult, slot_of_day, fixed_scales=None):
-    """Quantize + calendar-reorder one TileResult into flat-buffer planes.
-
-    ``fixed_scales`` (6,) = (d_scale, d_off, n_scale, n_off, se_scale,
-    se_off) selects the caller's run-global int16 lattice; the returned
-    scales echo it."""
+def _flatten_result(res: TileResult, slot_of_day):
+    """Quantize (one tile-wide scale/offset a plane) + calendar-reorder one
+    TileResult into flat-buffer planes and their six scales."""
     C = res.normal.shape[1]
     dpm = res.daily.shape[-1]
-    valid3 = res.ok[:, :, None]
-    if fixed_scales is not None:
-        dq = _quantize_plane_fixed(res.daily, valid3, fixed_scales[0], fixed_scales[1])
-        nq = _quantize_plane_fixed(res.normal, res.ok, fixed_scales[2], fixed_scales[3])
-        sq = _quantize_plane_fixed(res.se, res.ok, fixed_scales[4], fixed_scales[5])
-        scales = fixed_scales
-    else:
-        dq, d_scale, d_off = _quantize_plane(res.daily, valid3)
-        nq, n_scale, n_off = _quantize_plane(res.normal, res.ok)
-        sq, s_scale, s_off = _quantize_plane(res.se, res.ok)
-        scales = torch.stack([d_scale, d_off, n_scale, n_off, s_scale, s_off])
+    dq, d_scale, d_off = _quantize_plane(res.daily, res.ok[:, :, None])
+    nq, n_scale, n_off = _quantize_plane(res.normal, res.ok)
+    sq, s_scale, s_off = _quantize_plane(res.se, res.ok)
+    scales = torch.stack([d_scale, d_off, n_scale, n_off, s_scale, s_off])
     slot = torch.as_tensor(np.asarray(slot_of_day), dtype=torch.long, device=dq.device)
     cal = dq.permute(0, 2, 1).reshape(12 * dpm, C)[slot]
     return torch.cat([cal, nq, sq], dim=0), scales
 
 
-def _as_scales(fixed_scales, device):
-    if fixed_scales is None:
-        return None
-    return torch.as_tensor(np.asarray(fixed_scales), dtype=torch.float32, device=device)
+def _flat_fixed(inputs, extra_vars, slot_of_day, params, shared_validity, fixed_scales,
+                reconcile) -> FlatTileResult:
+    """The flat product of 1 + len(extra_vars) variables on the caller's
+    run-global lattice ``fixed_scales`` (6 floats a variable): the kriging
+    half, then one ``scatter_daily_packed`` call that fills the daily rows of
+    the step's buffer, then the 24 normal and se rows of each variable."""
+    all_vars = _all_vars(inputs, extra_vars)
+    V = len(all_vars)
+    S = inputs.stn_lon.shape[0]
+    C = inputs.cell_lon.shape[0]
+    dev = inputs.cell_lon.device
+    dpm = inputs.stn_anoms.shape[-1]
+    slot = np.asarray(slot_of_day)
+    if slot.ndim != 1 or (slot.size and (slot.min() < 0 or slot.max() >= 12 * dpm)):
+        raise ValueError(f"slot_of_day must be (ndays,) slots in [0, {12 * dpm})")
+    # host arrays go to the device first: a copy from pageable memory waits for
+    # the stream, and after the kriging launch that wait would be the launch
+    slot = torch.as_tensor(slot.astype(np.int32), device=dev)
+    ndays = slot.shape[0]
+    fs = torch.as_tensor(np.asarray(fixed_scales), dtype=torch.float32, device=dev)
+    if fs.shape != (6 * V,):
+        raise ValueError(f"fixed_scales needs {6 * V} values, got {tuple(fs.shape)}")
+    sc = fs.view(V, 6, 1, 1)
+    kr = _krig_tile_multi(inputs, all_vars, params, shared_validity)
+    Y = torch.stack([var.anoms for var in all_vars]).to(torch.float32)  # (V, 12, S, dpm)
+    Y = Y.permute(0, 2, 1, 3).reshape(V, S, 12 * dpm)
+    normal, ok = kr.normal.contiguous(), kr.ok.contiguous()
+    buf = torch.empty((V * (ndays + 24), C), dtype=torch.int16, device=dev)
+    scatter_daily_packed(
+        kr.idx, kr.mask, kr.gains.contiguous(), Y, normal, ok, slot,
+        fs.view(V, 6)[:, :2].contiguous(), buf, reconcile=reconcile,
+    )
+    rows = buf.view(V, ndays + 24, C)
+    rows[:, ndays : ndays + 12] = _quantize_plane_fixed(normal, ok, sc[:, 2], sc[:, 3])
+    rows[:, ndays + 12 :] = _quantize_plane_fixed(kr.se, ok, sc[:, 4], sc[:, 5])
+    return FlatTileResult(buf=buf, scales=fs)
 
 
 def interp_tile_flat(
@@ -421,11 +425,14 @@ def interp_tile_flat(
 ) -> FlatTileResult:
     """Production form of ``interp_tile``: one flat int16 buffer (see
     FlatTileResult). ``slot_of_day`` (ndays,) maps calendar day -> flat
-    (12 * dpm) month-grouped slot."""
+    (12 * dpm) month-grouped slot. ``fixed_scales`` (6,) = (d_scale, d_off,
+    n_scale, n_off, se_scale, se_off) selects the caller's run-global int16
+    lattice (echoed in ``scales``); without it each plane gets one tile-wide
+    scale and offset."""
+    if fixed_scales is not None:
+        return _flat_fixed(inputs, (), slot_of_day, params, shared_validity, fixed_scales, False)
     res = interp_tile(inputs, params, shared_validity=shared_validity)
-    buf, scales = _flatten_result(
-        res, slot_of_day, _as_scales(fixed_scales, res.normal.device)
-    )
+    buf, scales = _flatten_result(res, slot_of_day)
     return FlatTileResult(buf=buf, scales=scales)
 
 
@@ -445,6 +452,9 @@ def interp_tile_pair_flat(
     (B < A) to their mean-preserving midpoint, so A <= B holds; with shared
     fixed scales both variables quantize the midpoint to the same int16
     lattice point. Normals are left untouched."""
+    if fixed_scales is not None:
+        return _flat_fixed(pair.geom, (pair.b,), slot_of_day, params, shared_validity,
+                           fixed_scales, reconcile)
     res_a, res_b = interp_tile_pair(pair, params, shared_validity)
     if reconcile:
         both = (res_a.ok & res_b.ok)[:, :, None]
@@ -452,9 +462,8 @@ def interp_tile_pair_flat(
         mid = 0.5 * (res_a.daily + res_b.daily)
         res_a = res_a._replace(daily=torch.where(bad, mid, res_a.daily))
         res_b = res_b._replace(daily=torch.where(bad, mid, res_b.daily))
-    fs = _as_scales(fixed_scales, res_a.normal.device)
-    buf_a, sc_a = _flatten_result(res_a, slot_of_day, None if fs is None else fs[:6])
-    buf_b, sc_b = _flatten_result(res_b, slot_of_day, None if fs is None else fs[6:])
+    buf_a, sc_a = _flatten_result(res_a, slot_of_day)
+    buf_b, sc_b = _flatten_result(res_b, slot_of_day)
     return FlatTileResult(
         buf=torch.cat([buf_a, buf_b], dim=0), scales=torch.cat([sc_a, sc_b])
     )

@@ -465,10 +465,9 @@ krig_normals_indexed_kernel(
     if (s < k)
       id = idx64 ? static_cast<const long long*>(idx)[g * k + s]
                  : static_cast<const int*>(idx)[g * k + s];
-    // The contract is 0 <= id < S in every slot, masked or not (the plain
-    // version indexes the table with it and raises otherwise). The clamp only
-    // keeps a stray index from reading outside the table: in a masked slot
-    // the row read is inert, in a valid slot the answer is wrong.
+    // An index outside the table is clamped to its first or last row, as the
+    // plain version clamps it: in a masked slot the row read is inert, in a
+    // valid slot the system is solved with that row.
     id = id < 0 ? 0 : (id >= S ? S - 1 : id);
     src.trow[r] = table + (size_t)id * F;
   }

@@ -161,12 +161,14 @@ def krig_normals_indexed_ref(
     """Plain version of the indexed entry: the same arguments, heads
     (P, C, 8) and gains (N, C, k), computed with the port's batched torch
     modules in the dtype of the tables. Each neighbourhood's table rows are
-    gathered once."""
+    gathered once, with the indices clamped into the table as the kernel
+    clamps them."""
     N, C, _, _, pairs = _indexed_args(idx, dist, mask, table, cell, pairs, shared)
+    last = table.shape[0] - 1
     heads = [None] * len(pairs)
     gains = []
     for n in range(N):
-        G = table[idx[n].long()]  # (C, k, F)
+        G = table[idx[n].long().clamp(0, last)]  # (C, k, F)
         d, msk = dist[n].to(table.dtype), mask[n].bool()
         w = distance_weights(d, msk, weight_kernel)
         c = system_columns(G, cell, 0, 0)
@@ -197,11 +199,11 @@ def krig_normals_indexed(
     weight_kernel: str = "bisquare",
 ):
     """Every system of ``pairs`` in one launch -> (head (P, C, 8), gains
-    (N, C, k)); head[p] holds system ``pairs[p]``. Every entry of ``idx``,
-    masked slots included, must be a row of ``table``: the plain version
-    raises on another, the kernel (which does not read ``idx`` back to the
-    host to check it) clamps it into the table, which is inert only where
-    the slot is masked."""
+    (N, C, k)); head[p] holds system ``pairs[p]``. An entry of ``idx``
+    outside the table is clamped to its first or last row, by the kernel and
+    by the plain version alike (neither reads ``idx`` back to the host to
+    check it; a ``jnp`` gather clamps the same way). In a masked slot the row
+    read is inert; in a valid slot the system is solved with that row."""
     what = "krig_normals_indexed"
     args = (idx, dist, mask, table, cell)
     dev = _build.common_device(what, *args)
