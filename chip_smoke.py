@@ -53,7 +53,23 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    trace (one ``krig_normals`` kernel, one packed kernel, no float-entry
    kernel), the copy, ``cat`` and elementwise kernels' share and the total
    number of kernel launches.
-7. the station-side stages at the reference's full network size: 10,000
+7. the production engine (``dist/engine.py::TileEngine``) as the CLI's
+   interp stage drives it: direct-to-mosaic ``run_production_pair`` over
+   ``bench_e2e.py``'s world (512 x 512 cells, 1,000 stations, 16 tiles of
+   128 x 128, k = 32, a 512-station pool, both variables, the reconcile) in
+   two one-year chunks (2015, 2016: 32 tile-pair steps), with a k_table that
+   gives two tiles per-variable sizes, into an in-memory mosaic
+   (``MemoryMosaic``: the writer interface on numpy arrays). Printed: wall,
+   var-cells/s, the main thread's prepare, the fetch thread's wait, the
+   writer's time, the steps' device time (CUDA events around each launch)
+   and busy share, launches, peak device and pinned host memory. It fails
+   unless 32 tile-pairs come back a variable, every manifest entry covers
+   its tile's land with no lattice violation and records its k, the
+   launches are 36 ``krig_normals``, 32 ``scatter_daily_packed`` and no
+   ``scatter_daily``, two tiles equal direct step calls bit for bit, July
+   normals of 8,192 sampled cells are within 0.3 C MAE of the truth, and a
+   resume of three tiles recomputes exactly them, bit for bit.
+8. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
    krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
    share, the July empirical variograms of 256 sampled stations (recomputed
@@ -72,7 +88,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    memory are printed, and profiler breakdowns of krig-params (5 of its
    50 Gauss-Newton iterations: reading the whole trace took the profiler
    about 50 s) and of the daily x-val.
-8. the PPCA infill at BASELINE config #3's settings
+9. the PPCA infill at BASELINE config #3's settings
    (``configs/config3_infill.json``: 12 components, 24 predictors, 200
    iterations, batches of 32) over the first 5,000 stations of the station
    phase's world and its 1,461 days (config #3's 1986-2015 span, 10,957
@@ -93,7 +109,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    recompute away from ties, and ``ppca_impute`` on two batches agrees
    between the card and the CPU (``filled`` within 5e-2 C, 5e-3 C on 99.9 %
    of entries; iteration counts within one).
-9. the card's name and power limit, one JSON line of kernels (each launch
+10. the card's name and power limit, one JSON line of kernels (each launch
    count is the sum over the main-path runs, each counted from 0; each
    kernel with its time, its plain version's, its bound and the library's
    way where there is one) and, as the last line,
@@ -132,6 +148,14 @@ IN_STATIONS = 5000    # the first 5,000 of the station phase's 10,000 (see phase
 IN_GAPS = 0.15        # the CLI's synthetic random gaps (cli/steps.py step_synth_data)
 IN_HOLDOUT = 0.2      # xval_infill's hold-out
 IN_TIE_MARGIN = 1e-4  # predictor score units (|corr| + 1); float32 grams part by ~1e-6
+# engine slice: bench_e2e.py's 512 x 512 world, 1,000 stations, two one-year chunks
+EN_SIDE = 512
+EN_STATIONS = 1000
+EN_START, EN_END = "2015-01-01", "2016-12-31"  # 731 days, one leap year
+EN_K_TABLE = {5: {"tmin": (24, 16), "tmax": (32, 24)},   # per-variable (k, ka) of two
+              10: {"tmin": (24, 16), "tmax": (32, 24)}}  # tiles, as optim-nnghs gives
+EN_RESUME = (3, 5, 12)  # tiles of the 2016 chunk recomputed by the resume check
+EN_TRUTH_CELLS = 8192   # cells whose July normal is held against the truth
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
@@ -997,6 +1021,332 @@ def phase_profile(step):
                            f"kernel {counts} times, not (1, 1, 0)")
 
 
+class MemoryMosaic:
+    """``topotpu_torch.io.ncdf.MosaicWriter``'s interface on numpy arrays (the
+    machine with the card has no h5py). Mosaics stay in ``STORE`` by path for
+    the life of the process, so a second engine on the same paths resumes
+    them; a store whose shape or daily lattice differs starts fresh. Reads
+    return copies, as an HDF5 read does."""
+
+    STORE: dict = {}  # path -> {"daily", "normal", "se", "attrs"}
+
+    def __init__(self, path, var, grid, dates, daily_scale, daily_offset, tile_rows,
+                 tile_cols, compress=0):
+        import pathlib
+
+        self.path = pathlib.Path(path)
+        self.var = var
+        shape = (len(dates), grid.nrows, grid.ncols)
+        attrs = {"scale_factor": float(np.float32(daily_scale)),
+                 "add_offset": float(np.float32(daily_offset)), "layout": "direct"}
+        old = self.STORE.get(self.path)
+        self.fresh = not (old is not None and old["daily"].shape == shape
+                          and all(old["attrs"][k] == attrs[k] for k in attrs))
+        if self.fresh:
+            monthly = lambda: np.full((12,) + shape[1:], np.nan, np.float32)  # noqa: E731
+            self.STORE[self.path] = dict(daily=np.full(shape, -32768, np.int16),
+                                         normal=monthly(), se=monthly(), attrs=attrs)
+        else:  # resume: the tiles are rewritten, so completeness is claimed again only
+            for stale in ("complete", "reconciled"):  # by finalize
+                old["attrs"].pop(stale, None)
+        self.data = self.STORE[self.path]
+
+    def write_tile(self, row0, col0, daily_i16, normal, se, t0=0):
+        nt, nr, nc = daily_i16.shape
+        sl = (slice(row0, row0 + nr), slice(col0, col0 + nc))
+        self.data["daily"][(slice(t0, t0 + nt),) + sl] = daily_i16
+        if normal is not None:
+            self.data["normal"][(slice(None),) + sl] = normal
+            self.data["se"][(slice(None),) + sl] = se
+
+    def read_tile_raw(self, row0, col0, nr, nc, t0=0, nt=None):
+        d = self.data["daily"]
+        if nt is None:
+            nt = d.shape[0] - t0
+        return d[t0 : t0 + nt, row0 : row0 + nr, col0 : col0 + nc].copy()
+
+    def read_monthly_back(self, row0, col0, nr, nc):
+        sl = (slice(None), slice(row0, row0 + nr), slice(col0, col0 + nc))
+        return self.data["normal"][sl].copy(), self.data["se"][sl].copy()
+
+    def finalize(self, n_tiles, reconciled, process_index=0, process_count=1):
+        self.data["attrs"].update(n_tiles=n_tiles, complete=True, reconciled=bool(reconciled),
+                                  process_index=process_index, process_count=process_count)
+
+    def close(self):
+        pass
+
+
+def engine_inputs(side, n_stations, start, end, seed=0):
+    """``bench_e2e.py::build``'s world with the port's types: a side x side
+    world, every station valid in every month with the world's variogram;
+    var B = var A's normals + 9 C with anomalies x 0.85. Returns (world, days,
+    rasters, a, b)."""
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.dist.engine import StationSet
+    from topotpu_torch.io.rasters import RasterStack
+    from topotpu_torch.io.synthetic import make_world
+
+    days = get_days_metadata(start, end)
+    world = make_world(np.random.default_rng(seed), nrows=side, ncols=side,
+                       n_stations=n_stations, ndays=days.ndays)
+    S = world.n_stations
+    a = StationSet(
+        lon=world.stn_lon, lat=world.stn_lat, elev=world.stn_elev, tdi=world.stn_tdi,
+        lst=world.stn_lst, norm=world.stn_norm,
+        vario=np.tile(np.asarray(world.true_vario, np.float32), (S, 12, 1)),
+        valid=np.ones((S, 12), bool), anoms=world.stn_anoms.astype(np.float32),
+    )
+    b = dataclasses.replace(a, norm=world.stn_norm + 9.0,
+                            anoms=(world.stn_anoms * 0.85).astype(np.float32))
+    return world, days, RasterStack.from_world(world), a, b
+
+
+def timed_engine(stats):
+    """A TileEngine that writes into ``MemoryMosaic`` and adds to ``stats``:
+    the main thread's prepare seconds a tile-pair, the fetch thread's waits,
+    the writer's seconds a tile-pair, a pair of CUDA events around each step
+    launch, and any watchdog stall (which then exits as the engine does)."""
+    import torch
+
+    from topotpu_torch.dist.engine import TileEngine
+
+    class Timed(TileEngine):
+        MOSAIC_WRITER = MemoryMosaic
+
+        def prepare_pair(self, spec, a, b):
+            t = time.perf_counter()
+            out = super().prepare_pair(spec, a, b)
+            stats["prepare"].append(time.perf_counter() - t)
+            return out
+
+        def _fetch(self, fut):
+            t = time.perf_counter()
+            host = TileEngine._fetch(fut)
+            stats["fetch"].append(time.perf_counter() - t)
+            return host
+
+        def _write_tile_pair(self, spec, var_a, var_b, result):
+            t = time.perf_counter()
+            super()._write_tile_pair(spec, var_a, var_b, result)
+            stats["write"].append(time.perf_counter() - t)
+
+        def _get_pair_fn(self, *args, **kwargs):
+            fn = super()._get_pair_fn(*args, **kwargs)
+
+            def launch(*a, **kw):
+                t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0.record()
+                out = fn(*a, **kw)
+                t1.record()
+                stats["events"].append((t0, t1))
+                return out
+            return launch
+
+        def _on_stall(self, idle_s):
+            stats["stalls"].append(idle_s)
+            super()._on_stall(idle_s)
+
+    return Timed
+
+
+def _tile_region(spec, t0, nt):
+    return (slice(t0, t0 + nt), slice(spec.row0, spec.row0 + spec.nrows),
+            slice(spec.col0, spec.col0 + spec.ncols))
+
+
+def phase_engine(dev):
+    """The port's production engine as ``topotpu/cli/steps.py::step_interp``
+    drives the JAX one: direct-to-mosaic ``run_production_pair`` over
+    ``bench_e2e.py``'s world (512 x 512 cells, 1,000 stations, 16 tiles of
+    128 x 128 at the config defaults: k = 32, a 512-station pool) in two
+    one-year chunks, with a k_table that gives two tiles per-variable sizes
+    and an in-memory mosaic (the card's machine has no h5py). Checks the
+    counts, the manifests, coverage and lattice order, the launches, two
+    tiles bit for bit against direct step calls, July normals against the
+    truth, and a resume of three tiles bit for bit. Returns the launches."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from topotpu_torch.core.config import TopoConfig
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.interp.point import interp_tile_pair_flat
+
+    t_phase = time.perf_counter()
+    world, days, rasters, a, b = engine_inputs(EN_SIDE, EN_STATIONS, EN_START, EN_END)
+    cfg = TopoConfig(start_date=EN_START, end_date=EN_END, stall_timeout_s=60)
+    log(f"[engine] world {EN_SIDE}x{EN_SIDE}, {a.n} stations, {days.ndays} days built on the "
+        f"host in {time.perf_counter() - t_phase:.3f} s")
+    stats = {k: [] for k in ("prepare", "fetch", "write", "events", "stalls")}
+    laps = {}
+    Engine = timed_engine(stats)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_engine_")
+    root = pathlib.Path(tmp.name)
+    mosaics = {v: root / f"mosaic_{v}.h5" for v in ("tmin", "tmax")}
+    make = lambda out: Engine(cfg, rasters, days, out / "tiles", device=dev,  # noqa: E731
+                              mosaic_paths=mosaics, k_table=EN_K_TABLE)
+    try:
+        # warm-up: prepare and step one tile; then one step alone on an idle
+        # device, its span by CUDA events and its host wall
+        warm = Engine(cfg, rasters, days, root / "warm", device=dev)
+        spec = warm.tiling.tile(0)
+        _, pair = warm.prepare_pair(spec, a, b)
+        step = lambda: interp_tile_pair_flat(  # noqa: E731
+            pair, warm._dev_slot(), cfg.interp, True, fixed_scales=warm._dev_scales(2),
+            reconcile=True)
+        step()
+        torch.cuda.synchronize()
+        t_alone = time.perf_counter()
+        alone_ms = cuda_ms(step, 1, warmup=0)
+        alone_wall = (time.perf_counter() - t_alone) * 1e3
+        del warm, pair, step
+        for v in stats.values():
+            v.clear()
+        laps["world, warm-up"] = time.perf_counter() - t_phase
+
+        eng = make(root)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        counts = eng.run_production_pair("tmin", "tmax", a, b, years_per_chunk=1,
+                                         progress=False)
+        wall = time.perf_counter() - t0
+        laps["run"] = wall
+        launches = _read_launches()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pinned = (eng._staging.nbytes + eng._fetch_pool.nbytes) / 2**20
+        device_ms = sum(s.elapsed_time(e) for s, e in stats["events"])
+        n_pairs = len(stats["write"])
+        var_cells = 2 * EN_SIDE * EN_SIDE * 2  # two variables, two one-year chunks
+        timing = dict(prepare=np.mean(stats["prepare"]) * 1e3, fetch=np.sum(stats["fetch"]),
+                      fetch_max=np.max(stats["fetch"]) * 1e3,
+                      write=np.mean(stats["write"]) * 1e3)
+
+        n_ktab = len(EN_K_TABLE) * 2  # k_table tiles x chunks: one more krig_normals launch
+        if counts != {"tmin": 32, "tmax": 32} or n_pairs != 32:
+            raise RuntimeError(f"run_production_pair returned {counts} ({n_pairs} writes)")
+        if launches != dict(krig_normals=32 + n_ktab, scatter_daily=0, scatter_daily_packed=32):
+            raise RuntimeError(f"engine launches {launches}")
+        land = {t.tile_id: int(rasters.landmask[_tile_region(t, 0, 0)[1:]].sum())
+                for t in eng.tiling.land_tiles(rasters.landmask)}
+        if len(land) != 16:
+            raise RuntimeError(f"{len(land)} land tiles, expected 16")
+        for year in ("2015", "2016"):
+            man = json.loads((root / "tiles" / f"chunk_{year}_{year}" / "manifest.json")
+                             .read_text())["tiles"]
+            if len(man) != 32:
+                raise RuntimeError(f"chunk {year}: {len(man)} manifest entries")
+            for key, info in man.items():
+                var, tid = key.split("_")
+                ver, want_k = info["verify"], EN_K_TABLE.get(int(tid), {}).get(var)
+                if (ver["covered"] != land[int(tid)] or ver["viol"] != 0 or ver["pairs"] <= 0
+                        or info.get("k") != (list(want_k) if want_k else None)):
+                    raise RuntimeError(f"chunk {year} {key}: {info}")
+        store = {v: MemoryMosaic.STORE[mosaics[v]] for v in mosaics}
+        for v, m in store.items():
+            if not (m["attrs"].get("complete") and m["attrs"].get("reconciled")
+                    and m["attrs"].get("n_tiles") == 16):
+                raise RuntimeError(f"mosaic {v} attrs {m['attrs']}")
+
+        # two tiles of the 2016 chunk against the step called directly
+        d16 = get_days_metadata("2016-01-01", EN_END)
+        sel = days.year == 2016
+        a16, b16 = (dataclasses.replace(s, anoms=s.anoms[:, sel]) for s in (a, b))
+        check = Engine(cfg, rasters, d16, root / "check", device=dev, k_table=EN_K_TABLE)
+        fixed = check._dev_scales(2)
+        nd, t0_16 = d16.ndays, int(np.flatnonzero(sel)[0])
+        for tid in (3, 5):
+            spec = check.tiling.tile(tid)
+            _, pair = check.prepare_pair(spec, a16, b16)
+            params = check._params_for(spec, "tmin", "tmax") or cfg.interp
+            out = interp_tile_pair_flat(pair, check._dev_slot(), params, True,
+                                        fixed_scales=fixed, reconcile=True)
+            buf, sc = out.buf.cpu().numpy(), out.scales.cpu().numpy()
+            for v, var in enumerate(("tmin", "tmax")):
+                rows = buf[v * (nd + 24) : (v + 1) * (nd + 24)].reshape(
+                    nd + 24, cfg.tile_rows, cfg.tile_cols)
+                s6 = sc[6 * v : 6 * v + 6]
+                ok = rows[nd : nd + 12] != -32768
+                dec = lambda q, i: np.where(ok, q.astype(np.float32) * float(s6[i])  # noqa: E731
+                                            + float(s6[i + 1]), np.nan)
+                m = store[var]
+                same = (np.array_equal(m["daily"][_tile_region(spec, t0_16, nd)], rows[:nd])
+                        and np.array_equal(m["normal"][_tile_region(spec, 0, 12)],
+                                           dec(rows[nd : nd + 12], 2), equal_nan=True)
+                        and np.array_equal(m["se"][_tile_region(spec, 0, 12)],
+                                           dec(rows[nd + 12 :], 4), equal_nan=True))
+                if not same:
+                    raise RuntimeError(f"tile {tid} {var}: the mosaic is not the direct step's")
+        del check, pair, out
+
+        # July normals of sampled cells against the truth (the world's exact
+        # residual field is a dense product over every station for each cell)
+        cells = np.random.default_rng(11).choice(EN_SIDE * EN_SIDE, EN_TRUTH_CELLS, replace=False)
+        rows, cols = np.unravel_index(cells, (EN_SIDE, EN_SIDE))
+        lon, lat = world.grid.cell_lonlat(rows, cols)
+        truth = world.true_normal(lon, lat, world.elev[rows, cols], world.tdi[rows, cols],
+                                  world.lst[6, rows, cols], 7)
+        mae = float(np.mean(np.abs(store["tmin"]["normal"][6][rows, cols] - truth)))
+        if mae >= 0.3:
+            raise RuntimeError(f"July normals MAE vs truth {mae:.4f} C")
+
+        laps["checks"] = time.perf_counter() - t0 - wall
+        # resume: three tiles of the 2016 chunk lose their manifest entries
+        # and their daily region; exactly they are recomputed, bit for bit
+        t = time.perf_counter()
+        first = {v: {k: store[v][k].copy() for k in ("daily", "normal", "se")} for v in store}
+        man_path = root / "tiles" / "chunk_2016_2016" / "manifest.json"
+        man = json.loads(man_path.read_text())
+        for tid in EN_RESUME:
+            for v in store:
+                del man["tiles"][f"{v}_{tid:05d}"]
+                store[v]["daily"][_tile_region(eng.tiling.tile(tid), t0_16, nd)] = -32768
+        man_path.write_text(json.dumps(man))
+        _zero_launches()
+        t_resume = time.perf_counter()
+        again = make(root).run_production_pair("tmin", "tmax", a, b, years_per_chunk=1,
+                                               progress=False)
+        resume_wall = time.perf_counter() - t_resume
+        resumed = _read_launches()
+        n_k = sum(tid in EN_K_TABLE for tid in EN_RESUME)
+        if again != {"tmin": 3, "tmax": 3} or resumed != dict(
+                krig_normals=3 + n_k, scatter_daily=0, scatter_daily_packed=3):
+            raise RuntimeError(f"resume returned {again}, launches {resumed}")
+        for v in store:
+            for k, arr in first[v].items():
+                if not np.array_equal(store[v][k], arr, equal_nan=k != "daily"):
+                    raise RuntimeError(f"resume changed the {v} mosaic's {k}")
+        if stats["stalls"]:
+            raise RuntimeError(f"the stall watchdog fired: {stats['stalls']}")
+        laps["resume and its checks"] = time.perf_counter() - t
+    finally:
+        for path in mosaics.values():
+            MemoryMosaic.STORE.pop(path, None)
+        tmp.cleanup()
+
+    log(f"[engine] run_production_pair {EN_SIDE}x{EN_SIDE}, {a.n} stations, 2 one-year chunks "
+        f"(365 + 366 days), 16 tiles of {cfg.tile_rows}x{cfg.tile_cols}, k={cfg.interp.k_neighbors}, pool "
+        f"{cfg.interp.max_tile_stations}, reconcile on, k_table on tiles {sorted(EN_K_TABLE)}: "
+        f"{n_pairs} tile-pairs in {wall:.3f} s, {var_cells / wall:.1f} var-cells/s; prepare "
+        f"{timing['prepare']:.3f} ms a tile-pair (main thread); fetch thread waited "
+        f"{timing['fetch']:.3f} s in all (longest {timing['fetch_max']:.3f} ms); writer "
+        f"{timing['write']:.3f} ms a tile-pair; device {device_ms:.3f} ms in the steps "
+        f"(CUDA events around each launch; one step alone on the idle device "
+        f"{alone_ms:.3f} ms, host wall {alone_wall:.3f} ms), busy share "
+        f"{device_ms / 1e3 / wall:.3f}; launches "
+        f"{launches}; peak device memory {peak:.3f} GiB, pinned host {pinned:.1f} MiB; checks: "
+        f"manifests 32 + 32 a variable, full coverage, viol 0, k recorded, tiles 3 and 5 bit "
+        f"for bit vs the direct step, July normals MAE vs truth {mae:.4f} C ({EN_TRUTH_CELLS} "
+        f"cells); resume of tiles "
+        f"{list(EN_RESUME)}: {again}, launches {resumed}, {resume_wall:.3f} s, mosaic bit for "
+        f"bit; watchdog quiet; walls " + ", ".join(f"{k} {v:.3f} s" for k, v in laps.items())
+        + f" ({time.perf_counter() - t_phase:.1f} s in all)")
+    return {k: launches[k] + resumed[k] for k in launches}
+
+
 def _wsse(gamma, h, npairs, nug, ps, rg):
     """Weighted SSE of the variogram fit objective (gstat fit.method 7), float64."""
     ok = npairs > 0
@@ -1466,6 +1816,9 @@ def main():
     phase_profile(step)
     del step
     lap("ok_solve, slice, per-var, reconcile, profile")
+    for kernel, n in phase_engine(dev).items():
+        launches[kernel] += n
+    lap("engine")
     st_launches, st_world = phase_stations(dev)
     launches["krig_normals"] += st_launches
     lap("stations")

@@ -196,3 +196,169 @@ def test_detect_breaks_and_monthly_means_equal_on_a_planted_series():
         # stats beyond the found breaks are unwritten memory in both
         np.testing.assert_array_equal(s_o[b_o >= 0], s_j[b_j >= 0])
     assert (b_o[1] >= 0).sum() >= 1 and (b_o[2] >= 0).sum() >= 2 and (b_o[0] >= 0).sum() == 0
+
+
+def test_status_check_prints_the_same_lines(capsys):
+    import io
+
+    import topotpu.utils.status as jstatus
+    import topotpu_torch.utils.status as tstatus
+
+    lines = []
+    for mod in (jstatus, tstatus):
+        out = io.StringIO()
+        st = mod.StatusCheck(total=6, unit="tiles", every=2, items_per=100, out=out)
+        st.t0 -= 10.0  # a fixed elapsed time makes the rates comparable
+        for _ in range(6):
+            st.tick()
+        lines.append([ln.rsplit(",", 2)[0] for ln in out.getvalue().splitlines()])
+        assert st.count == 6 and st.elapsed >= 10.0
+        mod.StatusCheck(total=1, enabled=False).tick()
+    assert lines[0] == lines[1] and len(lines[0]) == 3
+    assert capsys.readouterr().err == ""
+
+
+def _world_rasters(seed):
+    world = tsyn.make_world(np.random.default_rng(seed), nrows=20, ncols=26, n_stations=10,
+                            ndays=5, ocean_frac=0.2)
+    import topotpu.io.rasters as jras
+    import topotpu_torch.io.rasters as tras
+
+    return world, jras.RasterStack.from_world(world), tras.RasterStack.from_world(world)
+
+
+def test_raster_stack_equal_and_files_load_in_both(tmp_path):
+    import topotpu.io.rasters as jras
+    import topotpu_torch.io.rasters as tras
+
+    _, theirs, ours = _world_rasters(5)
+    for a, b in zip(ours.tile_view(4, 7, 9, 11), theirs.tile_view(4, 7, 9, 11)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    ours.save(tmp_path / "ours.h5")
+    theirs.save(tmp_path / "theirs.h5")
+    for path in ("ours.h5", "theirs.h5"):
+        x, y = tras.RasterStack.load(tmp_path / path), jras.RasterStack.load(tmp_path / path)
+        assert dataclasses.asdict(x.grid) == dataclasses.asdict(y.grid)
+        for name in ("elev", "tdi", "lst", "landmask"):
+            np.testing.assert_array_equal(getattr(x, name), getattr(y, name))
+            np.testing.assert_array_equal(getattr(x, name), getattr(ours, name))
+
+
+def _h5_tree(path):
+    import h5py
+
+    out = {}
+    with h5py.File(path) as f:
+        out["/"] = {k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+        for name, ds in f.items():
+            attrs = {k: np.asarray(v).tolist() for k, v in ds.attrs.items()
+                     if k not in ("DIMENSION_LIST", "REFERENCE_LIST")}
+            out[name] = (ds[...], attrs, ds.dtype.str, ds.fletcher32, ds.chunks)
+    return out
+
+
+def _trees_equal(a, b):
+    assert sorted(a) == sorted(b)
+    for name in a:
+        if name == "/":
+            assert a[name] == b[name]
+            continue
+        np.testing.assert_array_equal(a[name][0], b[name][0], err_msg=name)
+        assert a[name][1:] == b[name][1:], name
+
+
+@pytest.mark.parametrize("pack", [True, False])
+def test_tile_writer_writes_the_same_file(tmp_path, pack):
+    import topotpu.io.ncdf as jnc
+    import topotpu_torch.io.ncdf as tnc
+
+    world, _, _ = _world_rasters(6)
+    days = tdates.get_days_metadata("2015-02-26", "2015-03-03")
+    sub = world.grid.subgrid(3, 4, 8, 9)
+    rng = np.random.default_rng(0)
+    daily = rng.normal(5, 3, (days.ndays, 8, 9)).astype(np.float32)
+    daily[:, 2, 3] = np.nan
+    monthly = rng.normal(0, 1, (12, 8, 9)).astype(np.float32)
+    monthly[4, 1, 1] = np.nan
+    q = rng.integers(-30000, 30000, (days.ndays, 8, 9)).astype(np.int16)
+    for mod, name in ((jnc, "theirs.h5"), (tnc, "ours.h5")):
+        with mod.TileWriter(tmp_path / name, sub, days.date64, pack=pack, compress=1) as w:
+            w.write_daily("tmin", daily, long_name="daily tmin")
+            w.write_monthly("tmin_normal", monthly)
+            w.write_daily_prepacked("q", q, 0.01, 2.0)
+            w.write_monthly_prepacked("qm", np.resize(q, (12, 8, 9)), 0.02, -1.0)
+    _trees_equal(_h5_tree(tmp_path / "ours.h5"), _h5_tree(tmp_path / "theirs.h5"))
+    for var in ("tmin", "tmin_normal", "q", "qm"):
+        np.testing.assert_array_equal(tnc.read_var(tmp_path / "theirs.h5", var),
+                                      jnc.read_var(tmp_path / "theirs.h5", var))
+    assert tnc.FILL_I16 == jnc.FILL_I16 and tnc.FILL_F32 == jnc.FILL_F32
+    for valid in (None, np.isfinite(daily) & (daily > 0)):
+        for a, b in zip(tnc._pack_int16(daily, valid), jnc._pack_int16(daily, valid)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mosaic_writer_writes_resumes_and_reads_the_same(tmp_path):
+    import h5py
+
+    import topotpu.io.ncdf as jnc
+    import topotpu_torch.io.ncdf as tnc
+
+    world, _, _ = _world_rasters(7)
+    days = tdates.get_days_metadata("2015-12-30", "2016-01-04")
+    rng = np.random.default_rng(1)
+    block = rng.integers(-20000, 20000, (3, 8, 10)).astype(np.int16)
+    normal = rng.normal(0, 1, (12, 8, 10)).astype(np.float32)
+    normal[:, 0, 0] = np.nan
+    for mod, name in ((jnc, "theirs.h5"), (tnc, "ours.h5")):
+        w = mod.MosaicWriter(tmp_path / name, "tmax", world.grid, days.date64, 2.4e-3, -10.0,
+                             8, 10)
+        assert w.fresh
+        w.write_tile(8, 10, block, normal, normal * 0.1, t0=2)
+        w.write_tile(0, 0, block[:2], None, None, t0=4)
+        back = w.read_tile_raw(8, 10, 8, 10, t0=2, nt=3)
+        np.testing.assert_array_equal(back, block)
+        nb, sb = w.read_monthly_back(8, 10, 8, 10)
+        np.testing.assert_array_equal(nb, normal)
+        w.finalize(4, reconciled=True)
+        w.close()
+        again = mod.MosaicWriter(tmp_path / name, "tmax", world.grid, days.date64, 2.4e-3,
+                                 -10.0, 8, 10)
+        assert not again.fresh  # same shape and lattice: resumed, attrs cleared
+        again.close()
+        with h5py.File(tmp_path / name) as f:
+            assert "complete" not in f.attrs and "reconciled" not in f.attrs
+        moved = mod.MosaicWriter(tmp_path / name, "tmax", world.grid, days.date64, 2.5e-3,
+                                 -10.0, 8, 10)
+        assert moved.fresh  # another lattice: rebuilt
+        moved.write_tile(8, 10, block, normal, normal * 0.1, t0=2)
+        moved.finalize(1, reconciled=False, process_index=0, process_count=1)
+        moved.close()
+    _trees_equal(_h5_tree(tmp_path / "ours.h5"), _h5_tree(tmp_path / "theirs.h5"))
+    with h5py.File(tmp_path / "theirs.h5") as f:
+        for sl in (Ellipsis, (slice(1, 4), slice(8, 12))):
+            np.testing.assert_array_equal(tnc.read_slice(f["tmax"], sl),
+                                          jnc.read_slice(f["tmax"], sl))
+        raw = f["tmax"][2:5]
+        np.testing.assert_array_equal(tnc.decode_array(raw, f["tmax"]),
+                                      jnc.decode_array(raw, f["tmax"]))
+    for var in ("tmax", "normal", "se"):
+        np.testing.assert_array_equal(tnc.read_var(tmp_path / "ours.h5", var),
+                                      jnc.read_var(tmp_path / "theirs.h5", var))
+    (tmp_path / "junk.h5").write_bytes(b"\x00" * 64)  # a corrupt file starts fresh
+    w = tnc.MosaicWriter(tmp_path / "junk.h5", "tmax", world.grid, days.date64, 2.4e-3, -10.0,
+                         8, 10)
+    assert w.fresh
+    w.close()
+
+
+def test_multihost_context_equal():
+    import topotpu.dist.multihost as jmh
+    import topotpu_torch.dist.multihost as tmh
+
+    for idx, count in ((0, 1), (1, 3), (2, 3)):
+        ours, theirs = tmh.MultihostContext(idx, count), jmh.MultihostContext(idx, count)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.manifest_name() == theirs.manifest_name()
+        assert ours.is_coordinator == theirs.is_coordinator
+        assert [ours.owns_tile(t) for t in range(7)] == [theirs.owns_tile(t) for t in range(7)]

@@ -22,11 +22,14 @@ for name in names + ["chip_smoke"]:
 print("MODULES", len(names))
 for needed in ("core.config", "core.dates", "core.grid", "core.constants", "io.synthetic",
                "oracle.numpy_ref", "oracle.pipeline", "homog.pha", "kernels.krig_normals",
-               "infill.post_infill", "interp.point"):
+               "infill.post_infill", "interp.point", "dist.engine", "dist.multihost",
+               "io.ncdf", "io.rasters", "utils.status"):
     assert "topotpu_torch." + needed in names, needed
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 from topotpu_torch.kernels.scatter_daily import scatter_daily
 from topotpu_torch.kernels.ok_solve_fused import ok_solve_fused, ok_solve_fused_xyz
+from topotpu_torch.dist.engine import TileEngine
+assert TileEngine.MOSAIC_WRITER is None  # io.ncdf.MosaicWriter, resolved when a mosaic opens
 assert krig_normals_indexed.launches == 0 and scatter_daily.launches == 0
 assert ok_solve_fused.launches == 0 and ok_solve_fused_xyz.launches == 0
 # no submodule shadows the package's re-export of the plain OK solve

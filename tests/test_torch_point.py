@@ -197,3 +197,34 @@ def test_zero_month_validity_flags_that_month(case):
     assert (flat[:NDAYS][july] == -32768).all()
     assert (flat[:NDAYS][~july] != -32768).all()
     assert (flat[NDAYS + 6] == -32768).all() and (flat[NDAYS + 12 + 6] == -32768).all()
+
+
+@pytest.mark.parametrize("reconcile", [True, False])
+def test_flat_fixed_takes_slot_and_scales_as_device_tensors(case, reconcile):
+    """``slot_of_day`` (int32) and ``fixed_scales`` (float32) given as tensors
+    on the inputs' device are used as they are: the product is exactly the
+    one the host arrays give, both variables and one. The host path still
+    refuses an out-of-range slot; a tensor of another dtype is refused."""
+    pair, layout = case
+    params = InterpParams(k_neighbors=K)
+    tpair = pair_inputs_from_numpy(pair, "cpu")
+    fs = fixed_scales_from_config(TopoConfig(), 2)
+    slot_t = torch.as_tensor(layout.slot_of_day.astype(np.int32))
+    host = tpoint.interp_tile_pair_flat(tpair, layout.slot_of_day, params, True,
+                                        fixed_scales=fs, reconcile=reconcile)
+    dev = tpoint.interp_tile_pair_flat(tpair, slot_t, params, True,
+                                       fixed_scales=torch.as_tensor(fs), reconcile=reconcile)
+    assert torch.equal(host.buf, dev.buf) and torch.equal(host.scales, dev.scales)
+    one = [tpoint.interp_tile_flat(tpair.geom, s, params, True, fixed_scales=f).buf
+           for s, f in ((layout.slot_of_day, fs[:6]), (slot_t, torch.as_tensor(fs[:6])))]
+    assert torch.equal(*one)
+
+    bad = layout.slot_of_day.copy()
+    bad[3] = -1
+    with pytest.raises(ValueError, match="slot_of_day"):
+        tpoint.interp_tile_pair_flat(tpair, bad, params, True, fixed_scales=fs)
+    with pytest.raises(ValueError, match="slot_of_day"):
+        tpoint.interp_tile_pair_flat(tpair, slot_t.long(), params, True, fixed_scales=fs)
+    with pytest.raises(ValueError, match="fixed_scales"):
+        tpoint.interp_tile_pair_flat(tpair, slot_t, params, True,
+                                     fixed_scales=torch.as_tensor(fs[:6]))

@@ -53,7 +53,7 @@ def pair_inputs_from_numpy(pair, device, dtype: torch.dtype = COMPUTE_DTYPE) -> 
 def fixed_scales_from_config(cfg: TopoConfig, n_vars: int = 1) -> np.ndarray:
     """Run-global int16 pack lattice, (6 * n_vars,) float32 of per-plane
     (scale, offset): dailies and normals on [pack_temp_lo, pack_temp_hi], se
-    on [0, pack_se_hi]. The arithmetic of ``TileEngine._fixed_scales``."""
+    on [0, pack_se_hi]; ``TileEngine._fixed_scales``."""
     d_scale = (cfg.pack_temp_hi - cfg.pack_temp_lo) / 65500.0
     d_off = 0.5 * (cfg.pack_temp_hi + cfg.pack_temp_lo)
     s_scale = cfg.pack_se_hi / 65500.0

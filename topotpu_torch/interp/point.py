@@ -373,9 +373,31 @@ def _flatten_result(res: TileResult, slot_of_day):
     nq, n_scale, n_off = _quantize_plane(res.normal, res.ok)
     sq, s_scale, s_off = _quantize_plane(res.se, res.ok)
     scales = torch.stack([d_scale, d_off, n_scale, n_off, s_scale, s_off])
-    slot = torch.as_tensor(np.asarray(slot_of_day), dtype=torch.long, device=dq.device)
+    if isinstance(slot_of_day, torch.Tensor):
+        slot = slot_of_day.to(dq.device, torch.long)
+    else:
+        slot = torch.as_tensor(np.asarray(slot_of_day), dtype=torch.long, device=dq.device)
     cal = dq.permute(0, 2, 1).reshape(12 * dpm, C)[slot]
     return torch.cat([cal, nq, sq], dim=0), scales
+
+
+def check_slot_of_day(slot_of_day, dpm: int) -> np.ndarray:
+    """``slot_of_day`` as an int32 host array, checked: (ndays,) slots in
+    [0, 12 * dpm)."""
+    slot = np.asarray(slot_of_day)
+    if slot.ndim != 1 or (slot.size and (slot.min() < 0 or slot.max() >= 12 * dpm)):
+        raise ValueError(f"slot_of_day must be (ndays,) slots in [0, {12 * dpm})")
+    return slot.astype(np.int32)
+
+
+def _on_device(what, t, dtype, shape, dev):
+    """A caller's tensor, used as it is: its dtype, shape and device are
+    checked (metadata only, no copy and no wait for the device)."""
+    if t.dtype != dtype or t.device != dev or (shape is not None and tuple(t.shape) != shape):
+        raise ValueError(f"{what}: a {t.dtype} tensor of shape {tuple(t.shape)} on {t.device}, "
+                         f"expected {dtype}{'' if shape is None else f' of shape {shape}'} "
+                         f"on {dev}")
+    return t
 
 
 def _flat_fixed(inputs, extra_vars, slot_of_day, params, shared_validity, fixed_scales,
@@ -383,23 +405,35 @@ def _flat_fixed(inputs, extra_vars, slot_of_day, params, shared_validity, fixed_
     """The flat product of 1 + len(extra_vars) variables on the caller's
     run-global lattice ``fixed_scales`` (6 floats a variable): the kriging
     half, then one ``scatter_daily_packed`` call that fills the daily rows of
-    the step's buffer, then the 24 normal and se rows of each variable."""
+    the step's buffer, then the 24 normal and se rows of each variable.
+
+    ``slot_of_day`` and ``fixed_scales`` are host arrays, checked and copied
+    to the device on every call, or an int32 and a float32 tensor already on
+    the inputs' device, used as they are (a caller that steps many tiles
+    checks and uploads them once: a copy from pageable memory waits for the
+    stream, so a copy a step would hold each launch until the previous
+    step's kernels end)."""
     all_vars = _all_vars(inputs, extra_vars)
     V = len(all_vars)
     S = inputs.stn_lon.shape[0]
     C = inputs.cell_lon.shape[0]
     dev = inputs.cell_lon.device
     dpm = inputs.stn_anoms.shape[-1]
-    slot = np.asarray(slot_of_day)
-    if slot.ndim != 1 or (slot.size and (slot.min() < 0 or slot.max() >= 12 * dpm)):
-        raise ValueError(f"slot_of_day must be (ndays,) slots in [0, {12 * dpm})")
-    # host arrays go to the device first: a copy from pageable memory waits for
-    # the stream, and after the kriging launch that wait would be the launch
-    slot = torch.as_tensor(slot.astype(np.int32), device=dev)
+    if isinstance(slot_of_day, torch.Tensor):
+        slot = _on_device("slot_of_day", slot_of_day, torch.int32, None, dev)
+        if slot.dim() != 1:
+            raise ValueError("slot_of_day must be (ndays,)")
+    else:
+        # host arrays go to the device first: a copy from pageable memory waits
+        # for the stream, and after the kriging launch that wait would be the launch
+        slot = torch.as_tensor(check_slot_of_day(slot_of_day, dpm), device=dev)
     ndays = slot.shape[0]
-    fs = torch.as_tensor(np.asarray(fixed_scales), dtype=torch.float32, device=dev)
-    if fs.shape != (6 * V,):
-        raise ValueError(f"fixed_scales needs {6 * V} values, got {tuple(fs.shape)}")
+    if isinstance(fixed_scales, torch.Tensor):
+        fs = _on_device("fixed_scales", fixed_scales, torch.float32, (6 * V,), dev)
+    else:
+        fs = torch.as_tensor(np.asarray(fixed_scales), dtype=torch.float32, device=dev)
+        if fs.shape != (6 * V,):
+            raise ValueError(f"fixed_scales needs {6 * V} values, got {tuple(fs.shape)}")
     sc = fs.view(V, 6, 1, 1)
     kr = _krig_tile_multi(inputs, all_vars, params, shared_validity)
     Y = torch.stack([var.anoms for var in all_vars]).to(torch.float32)  # (V, 12, S, dpm)
@@ -428,7 +462,8 @@ def interp_tile_flat(
     (12 * dpm) month-grouped slot. ``fixed_scales`` (6,) = (d_scale, d_off,
     n_scale, n_off, se_scale, se_off) selects the caller's run-global int16
     lattice (echoed in ``scales``); without it each plane gets one tile-wide
-    scale and offset."""
+    scale and offset. Either may be a tensor already on the inputs' device
+    (int32, float32), passed on unchecked and uncopied (``_flat_fixed``)."""
     if fixed_scales is not None:
         return _flat_fixed(inputs, (), slot_of_day, params, shared_validity, fixed_scales, False)
     res = interp_tile(inputs, params, shared_validity=shared_validity)
