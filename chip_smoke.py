@@ -49,11 +49,20 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 5. the reconcile on the lattice at one 128 x 128 production tile with
    crossing variables: no cell where both are ok may have tmax < tmin. Its
    float step (``interp_tile_pair``) must launch ``scatter_daily`` once.
-6. a profiler breakdown of one step, with the launch counts read from the
+6. the float64 validation mode (``interp/f64check.py::compare_f32_f64``, the
+   CLI's validate-f64 step) on one 64 x 64 tile of the benchmark world (cut
+   from a 128 x 128 production tile: its float64 side took the host 9-32 s),
+   one variable, k = 32, with the month layout's real-day mask: the float32
+   step on the card against the same step in float64 on the host's CPU.
+   Printed: normal, se and daily RMSE and max, the ok flip rate, the cells
+   compared and both walls. It fails unless the float32 side launched
+   ``krig_normals`` once, ``scatter_daily`` once and ``scatter_daily_packed``
+   not at all, and normal and daily RMSE are under BASELINE's 0.05 C.
+7. a profiler breakdown of one step, with the launch counts read from the
    trace (one ``krig_normals`` kernel, one packed kernel, no float-entry
    kernel), the copy, ``cat`` and elementwise kernels' share and the total
    number of kernel launches.
-7. the production engine (``dist/engine.py::TileEngine``) as the CLI's
+8. the production engine (``dist/engine.py::TileEngine``) as the CLI's
    interp stage drives it: direct-to-mosaic ``run_production_pair`` over
    ``bench_e2e.py``'s world (512 x 512 cells, 1,000 stations, 16 tiles of
    128 x 128, k = 32, a 512-station pool, both variables, the reconcile) in
@@ -69,7 +78,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    ``scatter_daily``, two tiles equal direct step calls bit for bit, July
    normals of 8,192 sampled cells are within 0.3 C MAE of the truth, and a
    resume of three tiles recomputes exactly them, bit for bit.
-8. the station-side stages at the reference's full network size: 10,000
+9. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
    krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
    share, the July empirical variograms of 256 sampled stations (recomputed
@@ -85,10 +94,29 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
    anomaly sweep over (8, 16, 24, 32). The indexed ``krig_normals`` launch
    counter must rise by one per x-val run. Each stage's wall time and the peak device
-   memory are printed, and profiler breakdowns of krig-params (5 of its
+   memory are printed, and profiler breakdowns of krig-params (2 of its
    50 Gauss-Newton iterations: reading the whole trace took the profiler
-   about 50 s) and of the daily x-val.
-9. the PPCA infill at BASELINE config #3's settings
+   about 50 s, 5 iterations 6 s) and of the daily x-val.
+10. the stages before the infill, as the CLI's qa, homog and make-regions
+   steps call them, on the CLI's synthetic network (``qa_network``:
+   ``make_world(default_rng(31))``, 512 x 512 cells, 1,000 stations,
+   2004-2015, tmin and tmax as its synth-data step builds them, 15 %
+   missing), with ``tests/test_qa.py``'s planted defects, its lone +15 C
+   value (in tmax) and +1.5 C before 2010 in both variables of 20 stations:
+   ``run_qa_non_spatial``, ``run_qa_spatial`` of each variable, the flagged
+   values set to NaN, ``homogenize_elements`` over tmin and tmax, and
+   ``make_climate_regions`` of the world's rasters. The full network is
+   10,000 stations; at that size this host work would take about 80 s, so
+   it is cut to 1,000 (the 12-year span is what minseg = 24 months needs).
+   Printed: each wall, flags by code, the share of unplanted values
+   flagged, planted steps found within 6 months and breaks elsewhere per
+   variable, the branch ``select_predictors`` took, region sizes. It fails
+   unless every planted fault carries a code ``tests/test_qa.py`` accepts,
+   the selection took its numpy branch, the homogenisation finds at most
+   one planted step fewer and at most two breaks more elsewhere than the
+   JAX package does on the same network (``QH_JAX_COUNTS``), and the
+   regions are labelled 0..11 on land and -1 off it, none empty.
+11. the PPCA infill at BASELINE config #3's settings
    (``configs/config3_infill.json``: 12 components, 24 predictors, 200
    iterations, batches of 32) over the first 5,000 stations of the station
    phase's world and its 1,461 days (config #3's 1986-2015 span, 10,957
@@ -109,7 +137,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    recompute away from ties, and ``ppca_impute`` on two batches agrees
    between the card and the CPU (``filled`` within 5e-2 C, 5e-3 C on 99.9 %
    of entries; iteration counts within one).
-10. the card's name and power limit, one JSON line of kernels (each launch
+12. the card's name and power limit, one JSON line of kernels (each launch
    count is the sum over the main-path runs, each counted from 0; each
    kernel with its time, its plain version's, its bound and the library's
    way where there is one) and, as the last line,
@@ -156,6 +184,23 @@ EN_K_TABLE = {5: {"tmin": (24, 16), "tmax": (32, 24)},   # per-variable (k, ka) 
               10: {"tmin": (24, 16), "tmax": (32, 24)}}  # tiles, as optim-nnghs gives
 EN_RESUME = (3, 5, 12)  # tiles of the 2016 chunk recomputed by the resume check
 EN_TRUTH_CELLS = 8192   # cells whose July normal is held against the truth
+# station QA + homogenisation slice: the CLI's synthetic network (step_synth_data)
+# at 1,000 of the full network's 10,000 stations (see phase_station_qa)
+QH_SIDE = 512
+QH_STATIONS = 1000
+QH_START, QH_END = "2004-01-01", "2015-12-31"  # 4,383 days: minseg = 24 months needs the span
+QH_MISSING = 0.15       # step_synth_data's missing_frac
+QH_STEPS = 20           # stations with +1.5 C in both variables before QH_STEP_AT
+QH_STEP_AT = 20100101
+# planted steps found (of QH_STEPS) and breaks elsewhere, per variable, that the
+# JAX package's QA + homogenize_elements give on qa_network()
+# (tests/test_torch_qa_network.py holds them); the port may find one fewer
+# and two more elsewhere
+QH_JAX_COUNTS = {"tmin": (7, 0), "tmax": (7, 0)}
+# float64 validation slice: a 64 x 64 tile, not a 128 x 128 production tile;
+# the float64 side on the host took 9-32 s at 128 x 128, which held the script
+# over 240 s in one of three runs (see phase_f64)
+F64_SIDE = 64
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
@@ -444,9 +489,11 @@ def phase_kernels(world, days, rows64, dev):
     for k, per_month, weight_kernel in (
             (K, False, "bisquare"), (K, True, "bisquare"), (64, False, "bisquare"),
             (64, True, "bisquare"), (K, False, "gaussian"), (K, False, "uniform")):
+        t = time.perf_counter()
         args = _indexed_inputs(ti, k, per_month, dev)
         err, n_not_ok, e64_kern, e64_plain = _compare_indexed(
             args, pairs, per_month, k, weight_kernel=weight_kernel)
+        t_cmp = time.perf_counter() - t
         kw = dict(weight_kernel=weight_kernel)
         kern = lambda: krig_normals_indexed(*args, pairs, not per_month, **kw)  # noqa: E731
         plain = lambda: krig_normals_indexed_ref(*args, pairs, not per_month, **kw)  # noqa: E731
@@ -471,7 +518,7 @@ def phase_kernels(world, days, rows64, dev):
                 raise AssertionError("a system's head depends on the launch it is solved in")
             line += (f"; the same systems one a launch, {len(pairs)} launches: "
                      f"{cuda_ms(each, 3, warmup=1):.4f} ms (heads equal bit for bit)")
-        log(line)
+        log(f"{line} ({t_cmp:.1f} s to compare, {time.perf_counter() - t:.1f} s in all)")
         if (k, per_month, weight_kernel) == (K, False, "bisquare"):
             report["krig_normals"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                           library_ms=None, **bnd)
@@ -494,6 +541,7 @@ def scatter_lines(rows64, dev):
     idx = np.ascontiguousarray(rows64["idx"][:, :K])  # (C, k) int64, as select_neighbors' topk
     idx[::3, 1] = idx[::3, 0]  # duplicate indices accumulate
     for D in (744, 2976):
+        t = time.perf_counter()
         args = [
             torch.from_numpy(idx).to(dev),
             torch.from_numpy(rng.normal(size=(C, K)).astype(np.float32)).to(dev),
@@ -508,12 +556,13 @@ def scatter_lines(rows64, dev):
             G = torch.zeros((C, N_STATIONS), dtype=g.dtype, device=dev)
             return G.scatter_add_(1, i.long(), g * m) @ y
 
-        got = kern().cpu().numpy()
-        want = plain().cpu().numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=f"scatter D={D}")
-        np.testing.assert_allclose(library().cpu().numpy(), want, rtol=1e-4, atol=1e-4,
-                                   err_msg=f"scatter_add_ + matmul D={D}")
-        err = float(np.abs(got - want).max())
+        # compared on the card: at D = 2,976 each (C, D) array is 780 MB
+        got, want = kern(), plain()
+        for what, a, tol in (("scatter_daily", got, 1e-5), ("scatter_add_ + matmul", library(),
+                                                            1e-4)):
+            if not bool(torch.isclose(a, want, rtol=tol, atol=tol, equal_nan=True).all()):
+                raise AssertionError(f"{what} D={D}: outside rtol = atol = {tol:.0e}")
+        err = float((got - want).abs().max())
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
         library_ms = cuda_ms(library, 5, warmup=1)
         nbytes = sum(a.numel() * a.element_size() for a in args) + C * D * 4
@@ -522,7 +571,7 @@ def scatter_lines(rows64, dev):
             f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
             f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; scatter_add_ + matmul (two "
             f"library calls, full fp32) {library_ms:.4f} ms "
-            f"(output write {C * D * 4 / ms / 1e6:.1f} GB/s)")
+            f"(output write {C * D * 4 / ms / 1e6:.1f} GB/s) ({time.perf_counter() - t:.1f} s)")
         if D == 744:
             report["scatter_daily"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                            library_ms=library_ms, **bnd)
@@ -612,6 +661,7 @@ def _packed_lines(idx64, dev):
             normal = torch.cat([normal, normal + 0.2])
             ok = chance(0.03, V, 12, C)
             for G in (1, 2):
+                t = time.perf_counter()
                 gains = normal_(G, N, C, K) * 0.1
                 args = (idx, mask, gains, Y, normal, ok, slot, scales)
                 got = torch.full((V * (ndays + 24), C), 12345, dtype=torch.int16, device=dev)
@@ -654,7 +704,8 @@ def _packed_lines(idx64, dev):
                     f"0 with q_1 < q_0; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                     f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; the float entry + plain "
                     f"torch packing {parts_ms:.4f} ms "
-                    f"(int16 write {V * ndays * C * 2 / ms / 1e6:.1f} GB/s)")
+                    f"(int16 write {V * ndays * C * 2 / ms / 1e6:.1f} GB/s) "
+                    f"({time.perf_counter() - t:.1f} s)")
                 if (ndays, N, G) == (NDAYS, 1, 1):
                     report = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
                                   library_ms=None, **bnd)
@@ -727,6 +778,7 @@ def phase_ok_solve(rows64, dev):
             if launches != dict(ok_solve_fused=1, ok_solve_fused_xyz=1):
                 raise RuntimeError(f"the OK-solve API did not launch its kernels: {launches}")
         for name, (kern_fn, plain_fn, xyz) in entries.items():
+            t = time.perf_counter()
             args = ((xyz3k if xyz else dp), dist_t, mask_t, *par)
             kern = lambda: kern_fn(*args)  # noqa: E731
             plain = lambda: plain_fn(*args)  # noqa: E731
@@ -737,7 +789,8 @@ def phase_ok_solve(rows64, dev):
                         B * solve_flops(k, xyz=bool(xyz)))
             log(f"[ok_solve] {name} B={B} k={k}: max_abs_err {err:.3e} "
                 f"(not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+                f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                f"({time.perf_counter() - t:.1f} s)")
             if k == K:
                 report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     library_ms=None, **bnd)
@@ -963,6 +1016,47 @@ def phase_reconcile(world, days, dev):
     return launches
 
 
+def phase_f64(world, days, dev):
+    """The float64 validation mode (``interp/f64check.py::compare_f32_f64``,
+    what the CLI's validate-f64 step calls) on one ``F64_SIDE`` x
+    ``F64_SIDE`` tile of the benchmark world, one variable, k = 32, with the
+    month layout's real-day mask: the float32 tile step on the card (one
+    ``krig_normals`` launch and one launch of ``scatter_daily``'s float entry)
+    against the same step in float64 on the host's CPU, held to BASELINE's
+    0.05 C RMSE bar on normals and dailies. The validate-f64 step hands it a
+    128 x 128 production tile; a quarter of that keeps the host's float64
+    side, which varies by 3x with the host's load, inside the script's
+    budget."""
+    from topotpu_torch.core.config import InterpParams
+    from topotpu_torch.interp import f64check
+    from topotpu_torch.io.synthetic import tile_inputs_from_world
+
+    tile = F64_SIDE
+    C = tile * tile
+    rows, cols = np.unravel_index(np.arange(C), (tile, tile))
+    ti, layout = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
+    _zero_launches()
+    with _StageWalls(f64check, ("run_tile_f64",)) as walls:
+        t = time.perf_counter()
+        r = f64check.compare_f32_f64(ti, InterpParams(k_neighbors=K),
+                                     day_valid=layout.day_valid, device=dev)
+        wall = time.perf_counter() - t
+    launches = _read_launches()
+    stats = " ".join(f"{key} RMSE {r[key]['rmse']:.3e} max {r[key]['max']:.3e}"
+                     for key in ("normal", "se", "daily"))
+    log(f"[f64] compare_f32_f64 on a {tile}x{tile} tile, S={N_STATIONS} k={K} days={NDAYS}, "
+        f"one variable: {stats} C; ok_flip_rate {r['ok_flip_rate']:.6f}, n_compared "
+        f"{r['n_compared']}; float32 on the card {wall - walls['run_tile_f64']:.3f} s, float64 "
+        f"on the host {walls['run_tile_f64']:.3f} s; float32 launches {launches}")
+    if launches != dict(krig_normals=1, scatter_daily=1, scatter_daily_packed=0):
+        raise RuntimeError(f"the float32 side launched {launches}")
+    if not (r["normal"]["rmse"] < 0.05 and r["daily"]["rmse"] < 0.05):
+        raise RuntimeError("float32 vs float64: outside the 0.05 C parity bar")
+    if r["n_compared"] < 0.99 * 12 * C:
+        raise RuntimeError(f"only {r['n_compared']} cell-months compared")
+    return launches
+
+
 def profile_breakdown(tag, what, fn):
     """Run ``fn`` once under ``torch.profiler`` and log its wall, the device
     kernel time (busy share = device time / wall), the port kernels' share
@@ -970,6 +1064,7 @@ def profile_breakdown(tag, what, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -991,7 +1086,7 @@ def profile_breakdown(tag, what, fn):
     log(f"[{tag}] {what} under the profiler: wall {wall_us / 1e3:.3f} ms, device "
         f"kernels {total / 1e3:.3f} ms ({len(events)} kinds; busy share "
         f"{total / wall_us:.3f}), of which the port kernels {ours / 1e3:.3f} ms; "
-        f"top: {parts}")
+        f"top: {parts} (traced and read in {time.perf_counter() - t_all:.1f} s)")
     return [(e.key, dev_us(e) / 1e3, e.count) for e in events]
 
 
@@ -1571,14 +1666,197 @@ def phase_stations(dev):
         + " ".join(f"{n} {w:.3f} s" for n, w in walls.items())
         + f"; peak device memory {peak:.3f} GiB")
     # the profiler takes ~50 s to read the trace of all 50 Gauss-Newton
-    # iterations (~40,000 small kernels); 5 of them show the same kernels
-    vp5 = dataclasses.replace(vp, gn_iters=5)
-    profile_breakdown("stations", "krig-params with 5 of its 50 GN iterations",
+    # iterations (~40,000 small kernels), 6 s for 5; 2 of them show the same
+    # kernels
+    vp2 = dataclasses.replace(vp, gn_iters=2)
+    profile_breakdown("stations", "krig-params with 2 of its 50 GN iterations",
                       lambda: build_krig_params(st.lon, st.lat, st.elev, st.tdi, st.lst,
-                                                st.norm, st.valid, vp5, ip, dev))
+                                                st.norm, st.valid, vp2, ip, dev))
     profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
         *st.krig(), st.anoms, st.month_idx, p32, dev))
     return sum(counts.values()), world
+
+
+def _observed_day(arrays, s, t0, half=0):
+    """The first day from ``t0`` on where every array of ``arrays`` is
+    observed at station ``s`` on that day and ``half`` days either side."""
+    ok = np.logical_and.reduce([np.isfinite(a[s]) for a in arrays])
+    win = np.lib.stride_tricks.sliding_window_view(ok, 2 * half + 1).all(axis=1)
+    return half + t0 + int(np.flatnonzero(win[t0:])[0])
+
+
+def qa_network():
+    """The station-QA slice's network: ``make_world`` (seed 31, 512 x 512
+    cells, 1,000 stations, 2004-2015), tmin and tmax built as the CLI's
+    synth-data step builds them (15 % missing), and the faults planted:
+    ``tests/test_qa.py``'s defects (a world record in each variable, a 30-day
+    streak, tmax < tmin, a +30 C spike, a date-aligned duplicated year), its
+    lone +15 C value at a station with at least 3 neighbours within 75 km
+    (``run_qa_spatial``'s radius), and +1.5 C before 2010-01-01 in both
+    variables of 20 stations. Days are moved forward to observed ones where
+    the fault needs an observed value. Returns (world, days, tmin, tmax,
+    planted, steps): ``planted`` lists (fault, variable, station, day
+    indices, the codes ``tests/test_qa.py`` accepts), ``steps`` the
+    stepped stations."""
+    from topotpu_torch.core import constants as C
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.io.synthetic import make_world
+    from topotpu_torch.oracle.numpy_ref import haversine_km
+
+    days = get_days_metadata(QH_START, QH_END)
+    rng = np.random.default_rng(31)
+    world = make_world(rng, nrows=QH_SIDE, ncols=QH_SIDE, n_stations=QH_STATIONS,
+                       ndays=days.ndays)
+    S = world.n_stations
+    tmin = (world.stn_norm[np.arange(S)[:, None], days.month_idx[None, :]]
+            + world.stn_anoms).astype(np.float32)
+    tmax = tmin + 10.0 + 1.5 * rng.standard_normal(tmin.shape).astype(np.float32)
+    for arr in (tmin, tmax):
+        arr[rng.uniform(size=arr.shape) < QH_MISSING] = np.nan
+
+    planted = []
+    tmin[0, 100] = 99.0
+    planted.append(("world record", "tmin", 0, np.array([100]), {C.QA_IMPOSS_VALUE}))
+    tmax[1, 200] = -120.0
+    planted.append(("world record", "tmax", 1, np.array([200]), {C.QA_IMPOSS_VALUE}))
+    tmin[2, 300:330] = 5.0
+    planted.append(("30-day streak", "tmin", 2, np.arange(300, 330), {C.QA_STREAK}))
+    t = _observed_day((tmax,), 3, 400)
+    tmin[3, t] = tmax[3, t] + 5.0
+    for var in ("tmin", "tmax"):
+        planted.append(("tmax < tmin", var, 3, np.array([t]), {C.QA_INTERNAL}))
+    t = _observed_day((tmax,), 4, 500, half=1)
+    tmax[4, t] += 30.0
+    planted.append(("+30 C spike", "tmax", 4, np.array([t]),
+                    {C.QA_SPIKE_DIP, C.QA_CLIM_OUTLIER, C.QA_GAP}))
+    y13 = np.flatnonzero(days.year == 2013)
+    slot = (days.month - 1) * 31 + (days.day - 1)
+    src_of_slot = {slot[i]: i for i in np.flatnonzero(days.year == 2012)}
+    tmin[5, y13] = tmin[5, [src_of_slot[slot[i]] for i in y13]]
+    both = np.flatnonzero((days.year == 2012) | (days.year == 2013))  # the check flags both
+    planted.append(("duplicated year", "tmin", 5, both[np.isfinite(tmin[5, both])],
+                    {C.QA_DUP_YEAR}))
+
+    d = haversine_km(world.stn_lon[:, None], world.stn_lat[:, None],
+                     world.stn_lon[None], world.stn_lat[None])
+    near = (d < 75.0).sum(axis=1) - 1
+    s = 6 + int(np.flatnonzero(near[6:] >= 3)[0])
+    # in tmax: tmin + 15 C would lie above the day's tmax, which the internal
+    # consistency check takes before the spatial one sees it
+    t = _observed_day((tmax,), s, 600)
+    tmax[s, t] += 15.0
+    planted.append(("lone +15 C", "tmax", s, np.array([t]), {C.QA_SPATIAL_REGRESS}))
+
+    others = np.setdiff1d(np.arange(S), [p[2] for p in planted])
+    steps = np.sort(np.random.default_rng(32).choice(others, QH_STEPS, replace=False))
+    cut = int(np.flatnonzero(days.ymd == QH_STEP_AT)[0])
+    tmin[steps, :cut] += 1.5
+    tmax[steps, :cut] += 1.5
+    return world, days, tmin, tmax, planted, steps
+
+
+def homog_counts(results, days, steps, date_tol=6):
+    """{variable: (planted steps found within ``date_tol`` months, breaks
+    elsewhere)} of ``homogenize_elements``' results."""
+    keys = np.unique(days.year * 12 + days.month - 1)
+    at = int(np.searchsorted(keys, (QH_STEP_AT // 10000) * 12 + (QH_STEP_AT // 100) % 100 - 1))
+    out = {}
+    for var, res in results.items():
+        found = elsewhere = 0
+        for s, brks in enumerate(res.breakpoints):
+            hit = [b for b, _ in brks if s in steps and abs(b - at) <= date_tol]
+            found += bool(hit)
+            elsewhere += len(brks) - min(len(hit), 1)
+        out[var] = (found, elsewhere)
+    return out
+
+
+def phase_station_qa(dev):
+    """The stages before the infill on ``qa_network()``, as the CLI's qa and
+    homog steps and make-regions call them: the non-spatial QA, the spatial
+    QA of each variable, the flagged values set to NaN, ``homogenize_elements``
+    over tmin and tmax (its pair selection, ``select_predictors``, takes the
+    numpy branch at this size, as in the JAX package), and the climate
+    regions of the world's rasters. The full network is 10,000 stations; at
+    that size the host would spend about 80 s here, so the network is cut to
+    1,000 (the span stays 12 years: with minseg = 24 months a shorter one
+    leaves the break search almost no room)."""
+    from topotpu_torch.core import constants as C
+    from topotpu_torch.geo import make_climate_regions
+    from topotpu_torch.homog import homogenize_elements
+    from topotpu_torch.infill import pipeline
+    from topotpu_torch.io.rasters import RasterStack
+    from topotpu_torch.qa import run_qa_non_spatial, run_qa_spatial
+
+    t = time.perf_counter()
+    world, days, tmin, tmax, planted, steps = qa_network()
+    lon, lat = world.stn_lon, world.stn_lat
+    S, T = tmin.shape
+    walls = dict(network=time.perf_counter() - t)
+    t = time.perf_counter()
+    ft, fx = run_qa_non_spatial(tmin, tmax, days)
+    walls["non-spatial"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ft = run_qa_spatial(tmin, ft, lon, lat, days)
+    fx = run_qa_spatial(tmax, fx, lon, lat, days)
+    walls["spatial"] = time.perf_counter() - t
+    flags = dict(tmin=ft, tmax=fx)
+    missed = [f"{name} ({var}, station {s}: codes {sorted(set(flags[var][s, t].tolist()))})"
+              for name, var, s, t, codes in planted
+              if not np.isin(flags[var][s, t], list(codes)).all()]
+    by_code = np.bincount(np.concatenate([ft.ravel(), fx.ravel()]), minlength=16)
+    unplanted = dict(tmin=np.isfinite(tmin), tmax=np.isfinite(tmax))
+    for _, var, s, t, _ in planted:
+        unplanted[var][s, t] = False
+    share = {v: float((flags[v][unplanted[v]] != C.QA_OK).mean()) for v in flags}
+    log(f"[qa] {S} stations x {T} days ({QH_START} to {QH_END}), {QH_MISSING:.0%} missing, "
+        f"{len(planted)} planted faults: walls network {walls['network']:.3f} s, "
+        f"run_qa_non_spatial {walls['non-spatial']:.3f} s, run_qa_spatial (both variables) "
+        f"{walls['spatial']:.3f} s; flags by code "
+        + str({int(c): int(n) for c, n in enumerate(by_code) if n and c != C.QA_OK})
+        + "; share of unplanted observed values flagged "
+        + " ".join(f"{v} {x:.6f}" for v, x in share.items())
+        + f"; planted faults without an accepted code: {len(missed)}")
+    if missed:
+        raise RuntimeError("planted QA faults missed: " + "; ".join(missed))
+
+    obs = {v: np.where(flags[v] == C.QA_OK, a, np.nan) for v, a in (("tmin", tmin),
+                                                                    ("tmax", tmax))}
+    M = len(np.unique(days.year * 12 + days.month - 1))
+    gram = 6.0 * S * S * M
+    pipeline._device_select_predictors.calls = 0
+    t = time.perf_counter()
+    res = homogenize_elements(obs, days.year, days.month, lon, lat, device=dev)
+    wall = time.perf_counter() - t
+    calls = pipeline._device_select_predictors.calls
+    counts = homog_counts(res, days, steps)
+    log(f"[homog] homogenize_elements(tmin, tmax) on {S} stations x {M} months: wall "
+        f"{wall:.3f} s; select_predictors took its numpy branch on the host (6 S^2 M = "
+        f"{gram:.3g} gram operations < 2e11), device-branch calls {calls}; planted "
+        f"+1.5 C steps found within 6 months of {QH_STEP_AT} (of {QH_STEPS}) and breaks "
+        f"elsewhere: " + ", ".join(f"{v} {f} and {e}" for v, (f, e) in counts.items())
+        + f" (the JAX package: " + ", ".join(f"{v} {f} and {e}" for v, (f, e)
+                                            in QH_JAX_COUNTS.items()) + ")")
+    if calls:
+        raise RuntimeError(f"select_predictors ran its device branch {calls}x")
+    for v, (found, elsewhere) in counts.items():
+        j_found, j_elsewhere = QH_JAX_COUNTS[v]
+        if found < j_found - 1 or elsewhere > j_elsewhere + 2:
+            raise RuntimeError(f"homogenisation of {v}: {found} found, {elsewhere} elsewhere; "
+                               f"the JAX package {j_found} and {j_elsewhere}")
+
+    t = time.perf_counter()
+    rasters = RasterStack.from_world(world)
+    labels = make_climate_regions(rasters)
+    wall = time.perf_counter() - t
+    land = rasters.landmask
+    sizes = np.bincount(labels[land], minlength=12)
+    log(f"[regions] make_climate_regions on {QH_SIDE}x{QH_SIDE} cells ({int(land.sum())} land): "
+        f"wall {wall:.3f} s; region sizes {sizes.tolist()}")
+    if (labels[~land] != -1).any() or labels[land].min() < 0 or labels[land].max() > 11 \
+            or len(sizes) != 12 or (sizes == 0).any():
+        raise RuntimeError("climate regions: labels outside 0..11 on land or -1 off it, "
+                           "or an empty region")
 
 
 class _StageWalls:
@@ -1810,18 +2088,21 @@ def main():
     ok_report, ok_launches = phase_ok_solve(rows64, dev)
     del rows64
     launches, step = phase_slice(world, days, dev)
-    for more in (phase_per_var(world, days, dev), phase_reconcile(world, days, dev)):
+    for more in (phase_per_var(world, days, dev), phase_reconcile(world, days, dev),
+                 phase_f64(world, days, dev)):
         for kernel, n in more.items():
             launches[kernel] += n
     phase_profile(step)
     del step
-    lap("ok_solve, slice, per-var, reconcile, profile")
+    lap("ok_solve, slice, per-var, reconcile, f64, profile")
     for kernel, n in phase_engine(dev).items():
         launches[kernel] += n
     lap("engine")
     st_launches, st_world = phase_stations(dev)
     launches["krig_normals"] += st_launches
     lap("stations")
+    phase_station_qa(dev)
+    lap("qa, homog, regions")
     phase_infill(st_world, dev)
     del st_world
     lap("infill")

@@ -23,7 +23,9 @@ print("MODULES", len(names))
 for needed in ("core.config", "core.dates", "core.grid", "core.constants", "io.synthetic",
                "oracle.numpy_ref", "oracle.pipeline", "homog.pha", "kernels.krig_normals",
                "infill.post_infill", "interp.point", "dist.engine", "dist.multihost",
-               "io.ncdf", "io.rasters", "utils.status"):
+               "io.ncdf", "io.rasters", "utils.status", "qa", "qa.qa_temp", "qa.qa_location",
+               "homog", "geo.regions", "io.stndb", "io.build_db", "io.ushcn", "io.download",
+               "interp.f64check", "utils.profiling"):
     assert "topotpu_torch." + needed in names, needed
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 from topotpu_torch.kernels.scatter_daily import scatter_daily
@@ -43,6 +45,13 @@ days = get_days_metadata("2013-01-01", "2015-12-31")
 filled = np.random.default_rng(0).normal(size=(2, days.ndays)).astype(np.float32)
 flags = changepoint_flags(filled, np.ones_like(filled, bool), days.year, days.month)
 assert flags.shape == (2,) and not flags.any()
+# the packages' exports, as the JAX package's __init__ files name them
+from topotpu_torch.geo import make_climate_regions
+from topotpu_torch.homog import HomogResult, homogenize_elements, homogenize_network
+from topotpu_torch.homog import parse_station_history
+from topotpu_torch.qa import check_coordinates, check_elevation, run_qa_non_spatial
+from topotpu_torch.qa import run_qa_spatial
+from topotpu_torch.io.stndb import StationDB  # h5py only once a file opens
 roots = ("jax", "jaxlib", "topotpu", "h5py", "triton")
 bad = sorted(m for m in sys.modules
              if m in roots or m.startswith(tuple(r + "." for r in roots)))

@@ -1,13 +1,24 @@
-"""topotpu_torch: the tile interpolation step, the station-side kriging
-stages and the station infill of topotpu on PyTorch and CUDA.
+"""topotpu_torch: topotpu on PyTorch and CUDA, from the station database to
+the gridded product: station QA and homogenisation, the station infill, the
+station-side kriging stages, the tile interpolation step and the engine
+that drives it on one GPU.
 
 A second package beside ``topotpu`` (the JAX reference), with the same
 subpackage names so that each module's counterpart is easy to find:
 
 =====================  ==============================================
 ``core``               device and dtype policy (no TF32, explicit device),
-                       configuration dataclasses, dates, grids
-``geo``                great-circle distances, kNN neighbourhoods, weights
+                       configuration dataclasses, constants, dates, grids
+``io``                 the station database (HDF5; ``h5py`` is imported
+                       only where a file is opened), the raw-format readers
+                       and DB build, USHCN ingest, download URLs, rasters,
+                       NetCDF/HDF5 tile and mosaic writers, the synthetic
+                       world
+``qa``                 station-observation and location QA (numpy)
+``homog``              pairwise homogenisation: the C++ SNHT and break-model
+                       core and the network logic around it
+``geo``                great-circle distances, kNN neighbourhoods, weights,
+                       climate regions
 ``kernels``            batched WLS / kriging solves, and the hand-written
                        CUDA kernels ``krig_normals``, ``scatter_daily`` and
                        ``ok_solve`` (sources in ``kernels/csrc``) beside
@@ -16,12 +27,12 @@ subpackage names so that each module's counterpart is easy to find:
                        estimator, batched Gauss-Newton fit) and PPCA
 ``infill``             predictor selection, batched PPCA imputation,
                        post-infill changepoint flags
-``homog``              the C++ SNHT changepoint core those flags use
 ``interp``             anomaly gains, the tile step, conversion of
                        the JAX package's state, per-station variogram
-                       parameters, cross-validation and nnghs optimisation
-``io``                 the synthetic world; tile inputs and station arrays
-                       from it
+                       parameters, cross-validation and nnghs optimisation,
+                       the float64 validation mode
+``dist``               the single-GPU production engine (``TileEngine``)
+``utils``              status lines, wall-time scopes, profiler traces
 ``oracle``             float64 numpy oracles
 =====================  ==============================================
 

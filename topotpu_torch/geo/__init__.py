@@ -10,3 +10,4 @@ from topotpu_torch.geo.neighbors import (  # noqa: F401
     distance_weights,
     select_neighbors,
 )
+from topotpu_torch.geo.regions import make_climate_regions  # noqa: F401
