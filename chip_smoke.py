@@ -11,7 +11,10 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 1. environment: torch version, the device, and ``nvidia-smi``'s name and
    power limit (a line of its own). No CUDA device: exit non-zero.
 2. build: the three kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
-   with nvcc, all started at once.
+   with nvcc, all started at once. While they compile, the main thread
+   builds phase 9's world on the host (numpy, 15-22 s on the card's host),
+   and ``python -m topotpu_torch.cli --help`` (phase 12) runs in a process
+   of its own: the script's 240 s budget had no room for either in turn.
 3. kernel vs plain version on the card at production shapes (65,536 cells,
    a 512-station pool, k = 32 and 64; the daily contraction at D = 744 and
    2,976), with the CPU parity tests' tolerances on 99.9 % of values, a cap
@@ -137,7 +140,38 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    recompute away from ties, and ``ppca_impute`` on two batches agrees
    between the card and the CPU (``filled`` within 5e-2 C, 5e-3 C on 99.9 %
    of entries; iteration counts within one).
-12. the card's name and power limit, one JSON line of kernels (each launch
+12. the CLI's stages (``topotpu_torch/cli/steps.py``) chained in the order
+   ``all --optim-nnghs`` runs them, through the array cores that sit
+   between their artifact reads and writes (no h5py on the card's machine):
+   the synthetic world of ``--grid 256 --stations 512`` over 2015 -> qa ->
+   homog -> infill (PPCAParams' defaults: 12 components, 24 predictors, 200
+   iterations) -> krig-params -> optim-nnghs (regions by
+   ``make_climate_regions``, both sweeps a variable) -> interp (the engine
+   into ``MemoryMosaic``, four 128 x 128 tiles, k = 32, a 512-station pool,
+   the reconcile, the sweep's k_table) -> mosaic (direct layout, complete,
+   reconciled) -> point (8 land sites) -> validate (streamed, with its disk
+   sample on the in-memory mosaic) -> aggregate -> validate-f64 (tmin, one
+   64 x 64 tile as in phase 6: the production tile's float64 side takes
+   9-32 s on the card's host). Each stage consumes the one before it; each
+   prints its report as the CLI does and its launches. Full production
+   width, cut in depth: the stages' device work at the network's full size
+   is what phases 8, 9 and 11 measure. It fails unless
+   ``python -m topotpu_torch.cli --help`` exits 0, every land tile is in the
+   manifest with full coverage, ``viol`` 0 and its k, the launches are those
+   the tiles and the k_table give (optim-nnghs one ``krig_normals`` a sweep
+   candidate, interp one a tile-pair and two where the variables' sizes
+   differ plus one ``scatter_daily_packed`` a tile-pair and no float entry,
+   point and validate-f64 one ``krig_normals`` and one ``scatter_daily`` a
+   variable, the rest none), the point stage's normals, se and dailies agree
+   with the same stage on CPU tensors (the plain versions; ``[kernels]``'
+   parity tolerance on 99.9 % of values, 1e-2 C cap), validate-f64 is
+   within the 0.05 C bar, no decoded cell has tmax < tmin, validate is ok for both
+   variables, the July normals of 8,192 land cells are within 0.3 C MAE of
+   the truth (the world's normal plus its anomaly field's July mean: the
+   chain's normals come from one year of observations), and the first
+   month's aggregate is the numpy mean of the decoded dailies within one
+   lattice step.
+13. the card's name and power limit, one JSON line of kernels (each launch
    count is the sum over the main-path runs, each counted from 0; each
    kernel with its time, its plain version's, its bound and the library's
    way where there is one) and, as the last line,
@@ -201,6 +235,14 @@ QH_JAX_COUNTS = {"tmin": (7, 0), "tmax": (7, 0)}
 # the float64 side on the host took 9-32 s at 128 x 128, which held the script
 # over 240 s in one of three runs (see phase_f64)
 F64_SIDE = 64
+# the CLI's stages chained: `all --optim-nnghs` on the CLI's synthetic world at
+# --grid 256 --stations 512 over 2015 (four production tiles; see phase_cli)
+CLI_SIDE = 256
+CLI_STATIONS = 512
+CLI_START, CLI_END = "2015-01-01", "2015-12-31"
+CLI_CANDIDATES = (8, 16, 24, 32, 48)  # the CLI's --k-candidates default
+CLI_POINTS = 8          # point-stage sites, on land cells
+CLI_TRUTH_CELLS = 8192  # cells whose July normal is held against the truth
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
@@ -1528,9 +1570,23 @@ def _loo_oracle(st, vario_m, normal_m, month, picks, k):
     return np.array(errs)
 
 
-def phase_stations(dev):
+def stations_world():
+    """The station phase's world and its station arrays, built on the host
+    (numpy) while nvcc builds the kernels: (world, arrays, ndays, seconds)."""
+    from topotpu_torch.io.synthetic import make_world, station_arrays_from_world
+
+    t0 = time.perf_counter()
+    ndays = int((np.datetime64(ST_END) - np.datetime64(ST_START)).astype(int)) + 1
+    world = make_world(np.random.default_rng(7), nrows=ST_SIDE, ncols=ST_SIDE,
+                       n_stations=ST_STATIONS, ndays=ndays)
+    return world, station_arrays_from_world(world, start=ST_START), ndays, \
+        time.perf_counter() - t0
+
+
+def phase_stations(dev, prebuilt):
     """krig-params, the x-val stages and both nnghs sweeps at the full
-    network size, through the port's public functions."""
+    network size, through the port's public functions, on ``prebuilt``
+    (``stations_world()``'s result)."""
     import torch
 
     from topotpu_torch.core.config import InterpParams, VariogramParams
@@ -1546,17 +1602,12 @@ def phase_stations(dev):
         xval_interp_daily,
         xval_interp_normals,
     )
-    from topotpu_torch.io.synthetic import make_world, station_arrays_from_world
     from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 
-    t0 = time.perf_counter()
-    ndays = int((np.datetime64(ST_END) - np.datetime64(ST_START)).astype(int)) + 1
-    world = make_world(np.random.default_rng(7), nrows=ST_SIDE, ncols=ST_SIDE,
-                       n_stations=ST_STATIONS, ndays=ndays)
-    st = station_arrays_from_world(world, start=ST_START)
+    world, st, ndays, build_s = prebuilt
     S = len(st.lon)
     log(f"[stations] world {ST_SIDE}x{ST_SIDE}, {S} stations, {ndays} days built on the "
-        f"host in {time.perf_counter() - t0:.3f} s")
+        f"host in {build_s:.3f} s (while nvcc built the kernels)")
     picks = np.sort(np.random.default_rng(8).choice(S, ST_SAMPLE, replace=False))
     torch.cuda.reset_peak_memory_stats()
     walls = {}
@@ -2057,23 +2108,349 @@ def phase_infill(world, dev):
     log(f"[infill] phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _point_against_plain(card, point_core, where, sets, days, params):
+    """The point stage's results on the card (``card``: variable -> normal,
+    se, ok, daily) against ``point_core`` on CPU tensors, where
+    ``krig_normals`` and ``scatter_daily`` run their plain versions on the
+    same inputs. ok flags and NaN cells identical; normals and dailies within
+    rtol 1e-4 atol 1e-3 C, se within rtol 1e-3 atol 1e-3 C, on at least 99.9 %
+    of values and every value within 1e-2 C (``[kernels]``' parity
+    tolerance and cap). Returns the largest difference."""
+    import torch
+
+    err = 0.0
+    for v, got in card.items():
+        want = point_core(where, sets[v], days, params, torch.device("cpu"))
+        if not np.array_equal(got[2], want[2]):
+            raise RuntimeError(f"point {v}: ok flags differ between the card and the CPU")
+        for what, g, w, rtol in zip(("normal", "se", "daily"), (got[0], got[1], got[3]),
+                                    (want[0], want[1], want[3]), (1e-4, 1e-3, 1e-4)):
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                raise RuntimeError(f"point {v} {what}: NaN cells differ")
+            d = np.abs(g - w)[~np.isnan(w)]
+            inside = float(np.mean(d <= 1e-3 + rtol * np.abs(w[~np.isnan(w)])))
+            if inside < 0.999 or d.max() > 1e-2:
+                raise RuntimeError(f"point {v} {what}: {inside:.5f} within tolerance of the "
+                                   f"plain version, max {d.max():.3e} C")
+            err = max(err, float(d.max()))
+    return err
+
+
+def start_cli_help():
+    """``python -m topotpu_torch.cli --help`` in a process of its own, started
+    beside the kernel build: its imports took 10.8 s on the card's host when
+    run in turn, all of it waiting. ``phase_cli`` reads its result."""
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parent
+    return subprocess.Popen([sys.executable, "-m", "topotpu_torch.cli", "--help"], cwd=repo,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_cli(dev, helped):
+    """The CLI's stages (``topotpu_torch/cli/steps.py``) chained on the card
+    in the order ``all --optim-nnghs`` runs them, through the array cores
+    between their artifact reads and writes (the card's machine has no
+    h5py): synth world -> qa -> homog -> infill -> krig-params ->
+    optim-nnghs -> interp (the engine into ``MemoryMosaic``, with the
+    optimized k_table) -> mosaic (the direct branch's checks) -> point
+    (held against its plain version on the CPU) -> validate (streamed) and
+    aggregate over the in-memory mosaic -> validate-f64 (tmin on one tile).
+    Each stage consumes the one before it. Full production width: 128 x 128
+    tiles, k = 32, a 512-station pool, both variables, the reconcile,
+    PPCAParams' defaults; depth cut to the CLI's synthetic world at --grid
+    256 --stations 512 over 2015 (four tiles), and validate-f64's tile to
+    ``F64_SIDE`` x ``F64_SIDE`` as in ``[f64]``. Also runs
+    ``python -m topotpu_torch.cli --help`` (``helped``: the process that
+    ``start_cli_help`` started). Returns the launches."""
+    import dataclasses
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from topotpu_torch.cli import steps
+    from topotpu_torch.core import constants as C
+    from topotpu_torch.core.config import TopoConfig
+    from topotpu_torch.dist.engine import TileEngine
+    from topotpu_torch.dist.multihost import merge_manifests
+    from topotpu_torch.geo.regions import make_climate_regions
+    from topotpu_torch.interp.point import krig_launches
+    from topotpu_torch.io.rasters import RasterStack
+
+    t_phase = time.perf_counter()
+    out, err = helped.communicate(timeout=300)
+    if helped.returncode != 0 or "synth-data" not in out:
+        raise RuntimeError(f"python -m topotpu_torch.cli --help: exit {helped.returncode}\n"
+                           f"{err[-2000:]}")
+    log(f"[cli] python -m topotpu_torch.cli --help (started with the build): exit 0, "
+        f"{len(out.splitlines())} lines; waited {time.perf_counter() - t_phase:.3f} s for it")
+
+    VARS = (C.TMIN, C.TMAX)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    root = pathlib.Path(tmp.name)
+    cfg = TopoConfig(data_dir=str(root), start_date=CLI_START, end_date=CLI_END,
+                     stall_timeout_s=60)
+    days = steps._days(cfg)
+    walls, launches, total = {}, {}, dict.fromkeys(_read_launches(), 0)
+
+    def stage(name, fn):
+        """Run one stage with the launch counts from 0; print its report as
+        the CLI does, then its launches."""
+        _zero_launches()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        launches[name] = _read_launches()
+        for k, n in launches[name].items():
+            total[k] += n
+        log("[cli] " + json.dumps({"stage": name, "result": result,
+                                    "wall_s": round(walls[name], 2)}, default=str)[:1500])
+        return result
+
+    class MemoryEngine(TileEngine):
+        MOSAIC_WRITER = MemoryMosaic
+
+    mosaics = {v: root / f"mosaic_{v}.h5" for v in VARS}
+    try:
+        st = {}
+
+        def synth():
+            st["world"], st["attrs"], tmin, tmax = steps._synth_world(
+                days, CLI_SIDE, CLI_SIDE, CLI_STATIONS, 0.15, 0, 0.1)
+            st["obs"] = {C.TMIN: tmin, C.TMAX: tmax}
+            st["rasters"] = RasterStack.from_world(st["world"])
+            return "ok"
+        stage("synth-data", synth)
+        attrs, rasters = st["attrs"], st["rasters"]
+        lon, lat = attrs[C.LON], attrs[C.LAT]
+
+        def qa():
+            ft, fx, out = steps._qa_core(st["obs"][C.TMIN], st["obs"][C.TMAX], lon, lat, days,
+                                         True, rasters, attrs[C.ELEV], attrs[C.STN_ID])
+            st["flags"] = {C.TMIN: ft, C.TMAX: fx}
+            return out
+        stage("qa", qa)
+
+        def homog():
+            results, n_breaks = steps._homog_core(st["obs"], st["flags"], days, lon, lat,
+                                                  None, dev)
+            st["homog"] = {v: r.adjusted_daily for v, r in results.items()}
+            return n_breaks
+        stage("homog", homog)
+
+        def infill():
+            out, st["stn"], st["filled"] = {}, {}, {}
+            for v in VARS:
+                res, bad, out[v] = steps._infill_core(st["homog"][v], days, cfg.ppca, lon, lat,
+                                                      dev)
+                # the serial DB's attributes, as write_serial_db writes them
+                st["stn"][v] = {**attrs, C.BAD: bad.astype(np.uint8),
+                                C.NORM: res.norms.astype(np.float32)}
+                st["filled"][v] = res.filled
+            return out
+        stage("infill", infill)
+
+        def krig_params():
+            out = {}
+            for v in VARS:
+                vario, out[v] = steps._krig_params_core(st["stn"][v], cfg, dev)
+                for i, name in enumerate((C.VARIO_NUG, C.VARIO_PSILL, C.VARIO_RNG)):
+                    st["stn"][v][name] = vario[..., i]
+            return out
+        stage("krig-params", krig_params)
+
+        def optim_nnghs():
+            reg = make_climate_regions(rasters)  # step_make_regions' defaults
+            regions = steps._sample_regions(reg, *rasters.grid.rowcol(lon, lat))
+            out = {v: steps._optim_nnghs_core(st["stn"][v], st["filled"][v], regions, days,
+                                              cfg, CLI_CANDIDATES, dev) for v in VARS}
+            ids = np.unique(reg).astype(np.int32)
+            ks = {v: steps._nnghs_k_arrays(out[v], ids, cfg) for v in VARS}
+            st["ktab"] = steps._nnghs_table_core(reg.astype(np.int32), ids, ks, rasters, cfg)
+            return out
+        stage("optim-nnghs", optim_nnghs)
+        ktab = st["ktab"]
+        sets = {v: steps._station_set_core(st["stn"][v], st["filled"][v], days) for v in VARS}
+
+        def interp():
+            eng = MemoryEngine(cfg, rasters, days, root / "tiles", device=dev,
+                               mosaic_paths=mosaics, k_table=ktab)
+            st["eng"] = eng
+            return steps._interp_core(eng, sets, 0, ktab, "optim-nnghs (in memory)")
+        interp_rep = stage("interp", interp)
+        store = {v: MemoryMosaic.STORE[mosaics[v]] for v in VARS}
+
+        def mosaic():
+            merge_manifests(root / "tiles")
+            layout = steps._latest_layout(root / "tiles")
+            a = {v: store[v]["attrs"] for v in VARS}
+            if layout != "direct" or not all(a[v].get("complete") and a[v].get("reconciled")
+                                             for v in VARS):
+                raise RuntimeError(f"mosaic: layout {layout}, attrs {a}")
+            return {v: a[v]["n_tiles"] for v in VARS}
+        stage("mosaic", mosaic)
+
+        land_rc = np.argwhere(rasters.landmask)
+        pick = land_rc[np.random.default_rng(5).choice(len(land_rc), CLI_POINTS, replace=False)]
+        p_lon, p_lat = rasters.grid.cell_lonlat(pick[:, 0], pick[:, 1])
+        sites = list(zip(p_lon.tolist(), p_lat.tolist()))
+
+        where = steps._point_sites(rasters, sites)
+
+        def point():
+            out, st["point"] = {}, {}
+            for v in VARS:
+                st["point"][v] = normal, _, ok, daily = steps._point_core(
+                    where, sets[v], days, cfg.interp, dev)
+                if not (np.isfinite(daily).all() and ok.all()):
+                    raise RuntimeError(f"point {v}: {int(ok.all(0).sum())} of {len(sites)} ok")
+                out[v] = {"sites": len(sites), "ok_sites": int(ok.all(0).sum()),
+                          "annual_normal": [round(float(x), 2) for x in normal.mean(0)]}
+            return out
+        stage("point", point)
+        point_err = _point_against_plain(st["point"], steps._point_core, where, sets, days,
+                                         cfg.interp)
+
+        def validate():
+            res = steps._streamed_core(
+                cfg, root / "tiles", rasters,
+                {v: {v: store[v]["daily"], "normal": store[v]["normal"]} for v in VARS})
+            if res is None or any(res[v]["status"] != "ok" for v in VARS):
+                raise RuntimeError(f"validate: {res}")
+            return res
+        stage("validate", validate)
+
+        def aggregate():
+            means = {name: {} for name in ("monthly", "annual")}
+            for name, i, plane in steps._aggregate_core(store[C.TMIN]["daily"], days.date64):
+                means[name][i] = plane
+            st["agg"] = means
+            return {C.TMIN: {"months": len(means["monthly"]), "years": len(means["annual"])}}
+        stage("aggregate", aggregate)
+
+        def validate_f64():
+            # one tile of F64_SIDE x F64_SIDE, as [f64]: the production tile's
+            # float64 side takes 9-32 s on the card's host
+            f64_cfg = dataclasses.replace(cfg, tile_rows=F64_SIDE, tile_cols=F64_SIDE)
+            eng = TileEngine(f64_cfg, rasters, days, root / "tiles_f64", device=dev)
+            res = steps._validate_f64_core(eng, sets[C.TMIN], 1, f64_cfg, dev)
+            if res["tiles"] != 1 or not res["within_parity_bar"]:
+                raise RuntimeError(f"validate-f64: {res}")
+            return {C.TMIN: res}
+        stage("validate-f64", validate_f64)
+
+        # checks
+        tiles = list(st["eng"].tiling.land_tiles(rasters.landmask))
+        n = len(tiles)
+        man = json.loads((root / "tiles" / "manifest.json").read_text())["tiles"]
+        for t in tiles:
+            land = int(rasters.landmask[t.row0:t.row0 + t.nrows, t.col0:t.col0 + t.ncols].sum())
+            for v in VARS:
+                info = man.get(f"{v}_{t.tile_id:05d}")
+                want_k = list(ktab[t.tile_id][v]) if t.tile_id in ktab else None
+                if (info is None or info["verify"]["viol"] != 0
+                        or info["verify"]["covered"] != land or info.get("k") != want_k):
+                    raise RuntimeError(f"manifest {v} tile {t.tile_id}: {info}")
+        zero = dict.fromkeys(total, 0)
+        want = {name: zero for name in launches}
+        want["optim-nnghs"] = dict(zero, krig_normals=2 * (
+            len(CLI_CANDIDATES) + sum(k <= cfg.interp.k_neighbors for k in CLI_CANDIDATES)))
+        want["interp"] = dict(zero, scatter_daily_packed=n, krig_normals=sum(
+            krig_launches(st["eng"]._params_for(t, *VARS) or cfg.interp, len(VARS))
+            for t in tiles))
+        want["point"] = dict(zero, krig_normals=2, scatter_daily=2)
+        want["validate-f64"] = dict(zero, krig_normals=1, scatter_daily=1)
+        if launches != want:
+            raise RuntimeError(f"launches by stage {launches}, expected {want}")
+        if interp_rep[C.TMIN] != n or interp_rep[C.TMAX] != n:
+            raise RuntimeError(f"interp {interp_rep}, {n} land tiles")
+        lo, hi = store[C.TMIN]["daily"], store[C.TMAX]["daily"]
+        both = (lo != -32768) & (hi != -32768)
+        if (hi[both] < lo[both]).any():  # one lattice for both: raw order is value order
+            raise RuntimeError(f"{int((hi[both] < lo[both]).sum())} decoded cells tmax < tmin")
+        land_cells = np.flatnonzero(rasters.landmask.ravel())
+        cells = np.random.default_rng(11).choice(land_cells, min(CLI_TRUTH_CELLS, land_cells.size),
+                                                 replace=False)
+        rows, cols = np.unravel_index(cells, rasters.landmask.shape)
+        world = st["world"]
+        c_lon, c_lat = world.grid.cell_lonlat(rows, cols)
+        # the chain estimates its normals from one year of observations, so
+        # the truth is the world's normal plus the mean of its noise-free
+        # anomaly field over July 2015 (about 1 C here; the anomalies are
+        # zero-mean over the span, not a month)
+        normal = world.true_normal(c_lon, c_lat, world.elev[rows, cols], world.tdi[rows, cols],
+                                   world.lst[6, rows, cols], 7)
+        truth = normal + world.anom_field_fn(c_lon, c_lat)[:, days.month_idx == 6].mean(1)
+        got_jul = store[C.TMIN]["normal"][6][rows, cols]
+        mae = float(np.mean(np.abs(got_jul - truth)))
+        mae_normal = float(np.mean(np.abs(got_jul - normal)))
+        if not mae < 0.3:
+            raise RuntimeError(f"July normals MAE vs truth {mae:.4f} C")
+        sc = store[C.TMIN]["attrs"]["scale_factor"]
+        off = store[C.TMIN]["attrs"]["add_offset"]
+        dec = np.where(lo != -32768, lo.astype(np.float32) * np.float32(sc) + np.float32(off),
+                       np.nan)
+        m0 = days.month_idx == days.month_idx[0]
+        blk = dec[m0]
+        ref = np.where(np.isfinite(blk).all(0), blk.mean(0), np.nan)
+        q = st["agg"]["monthly"][0]
+        got = np.where(q != -32768, q.astype(np.float32) * np.float32(sc) + np.float32(off), np.nan)
+        if not (np.array_equal(np.isfinite(ref), np.isfinite(got))
+                and np.abs(got - ref)[np.isfinite(ref)].max() <= sc + 1e-6):
+            raise RuntimeError("aggregate: the first month is not the daily mosaic's mean")
+    finally:
+        for path in mosaics.values():
+            MemoryMosaic.STORE.pop(path, None)
+        tmp.cleanup()
+    log(f"[cli] chain {CLI_SIDE}x{CLI_SIDE}, {CLI_STATIONS} stations, {days.ndays} days, "
+        f"{n} tiles of {cfg.tile_rows}x{cfg.tile_cols}, k={cfg.interp.k_neighbors}, pool "
+        f"{cfg.interp.max_tile_stations}, PPCA q={cfg.ppca.n_components} / "
+        f"{cfg.ppca.n_neighbors} predictors / {cfg.ppca.max_iters} iterations, k_table on "
+        f"{len(ktab)} tiles: walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; launches by stage {json.dumps(launches)}; checks: manifests, viol 0, k recorded, "
+        f"launches as the tiles and the k_table give, no tmax < tmin, validate ok, July normals "
+        f"MAE vs truth {mae:.4f} C ({cells.size} cells; {mae_normal:.4f} C vs the world's normal "
+        f"without the year's anomaly), first month's aggregate = the daily "
+        f"mean within one lattice step, point vs its plain version on the CPU max |diff| "
+        f"{point_err:.3e} C, validate-f64 within the 0.05 C bar "
+        f"({time.perf_counter() - t_phase:.1f} s in all)")
+    return total
+
+
 def main():
     mode = sys.argv[1] if sys.argv[1:] else "all"
     if mode not in ("all", "kernels", "scatter") or sys.argv[2:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, 'kernels' or 'scatter'")
     t_start = time.perf_counter()
     dev, name = phase_environment()
-    from topotpu_torch.core.dates import get_days_metadata
-    from topotpu_torch.io.synthetic import make_world
-
     t_phase = [time.perf_counter()]
 
     def lap(name):
         t_phase.append(time.perf_counter())
         log(f"[phase] {name} took {t_phase[-1] - t_phase[-2]:.1f} s")
 
-    phase_build(("scatter_daily",) if mode == "scatter" else KERNELS)
-    lap("build")
+    helped = start_cli_help() if mode == "all" else None
+    try:
+        run_phases(mode, dev, name, helped, t_start, lap)
+    finally:
+        if helped is not None and helped.poll() is None:
+            helped.kill()
+            helped.wait()
+
+
+def run_phases(mode, dev, name, helped, t_start, lap):
+    from topotpu_torch.core.dates import get_days_metadata
+    from topotpu_torch.io.synthetic import make_world
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:  # the build thread waits on nvcc processes
+        build = pool.submit(phase_build, ("scatter_daily",) if mode == "scatter" else KERNELS)
+        st_prebuilt = stations_world() if mode == "all" else None
+        build.result()
+    lap("build" + (", the station phase's world" if st_prebuilt else ""))
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
     days = get_days_metadata("2015-01-01", "2015-12-31")
@@ -2098,7 +2475,8 @@ def main():
     for kernel, n in phase_engine(dev).items():
         launches[kernel] += n
     lap("engine")
-    st_launches, st_world = phase_stations(dev)
+    st_launches, st_world = phase_stations(dev, st_prebuilt)
+    del st_prebuilt
     launches["krig_normals"] += st_launches
     lap("stations")
     phase_station_qa(dev)
@@ -2106,6 +2484,9 @@ def main():
     phase_infill(st_world, dev)
     del st_world
     lap("infill")
+    for kernel, n in phase_cli(dev, helped).items():
+        launches[kernel] += n
+    lap("cli")
     launches.update(ok_launches)
     report.update(ok_report)
 

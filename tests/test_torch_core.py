@@ -23,9 +23,16 @@ import topotpu_torch.homog.pha as tpha
 import topotpu_torch.io.synthetic as tsyn
 import topotpu_torch.oracle.numpy_ref as tref
 import topotpu_torch.oracle.pipeline as tpipe
+from jax_pha_core import load_jax_pha
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG_CLASSES = ("InterpParams", "VariogramParams", "PPCAParams", "MeshParams", "TopoConfig")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_snht_core():
+    """The JAX package's C++ core, built and loaded safely under xdist."""
+    load_jax_pha()
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)

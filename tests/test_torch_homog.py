@@ -16,8 +16,15 @@ import topotpu.homog.pha as jpha
 import topotpu_torch.homog.pha as tpha
 from topotpu.core.dates import get_days_metadata
 from topotpu.io.synthetic import make_world
+from jax_pha_core import load_jax_pha
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_snht_core():
+    """The JAX package's C++ core, built and loaded safely under xdist."""
+    load_jax_pha()
 
 
 @pytest.fixture(scope="module")

@@ -25,7 +25,7 @@ for needed in ("core.config", "core.dates", "core.grid", "core.constants", "io.s
                "infill.post_infill", "interp.point", "dist.engine", "dist.multihost",
                "io.ncdf", "io.rasters", "utils.status", "qa", "qa.qa_temp", "qa.qa_location",
                "homog", "geo.regions", "io.stndb", "io.build_db", "io.ushcn", "io.download",
-               "interp.f64check", "utils.profiling"):
+               "interp.f64check", "utils.profiling", "cli", "cli.main", "cli.steps"):
     assert "topotpu_torch." + needed in names, needed
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 from topotpu_torch.kernels.scatter_daily import scatter_daily
@@ -52,6 +52,10 @@ from topotpu_torch.homog import parse_station_history
 from topotpu_torch.qa import check_coordinates, check_elevation, run_qa_non_spatial
 from topotpu_torch.qa import run_qa_spatial
 from topotpu_torch.io.stndb import StationDB  # h5py only once a file opens
+# the CLI: its stages and the multi-process host side, h5py only once a file opens
+from topotpu_torch.cli.main import main
+from topotpu_torch.cli.steps import step_interp, stage_resume_status
+from topotpu_torch.dist.multihost import init_multihost, merge_manifests, partition_tiles
 roots = ("jax", "jaxlib", "topotpu", "h5py", "triton")
 bad = sorted(m for m in sys.modules
              if m in roots or m.startswith(tuple(r + "." for r in roots)))
@@ -88,3 +92,23 @@ def test_tf32_is_off_after_import():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cli_imports_h5py_only_where_files_open():
+    """The CLI's modules import no JAX, no ``topotpu``, no triton anywhere,
+    and h5py only inside the functions that open files, never at module
+    level."""
+    import ast
+
+    for name in ("main.py", "steps.py", "__main__.py", "__init__.py"):
+        tree = ast.parse((REPO / "topotpu_torch" / "cli" / name).read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "topotpu", "triton"} & set(roots), (name, roots)
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert all("h5py" not in ast.unparse(n) for n in top), name

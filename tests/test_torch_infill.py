@@ -33,11 +33,18 @@ from topotpu_torch.infill import infill_network, pipeline as tpipe
 from topotpu_torch.infill.post_infill import changepoint_flags
 from topotpu_torch.interp.xval import xval_infill
 from topotpu_torch.io.synthetic import station_network_from_world
+from jax_pha_core import load_jax_pha
 
 torch.set_num_threads(1)
 
 TIE_MARGIN = 1e-4  # score units (|corr| + 1); float32 grams part by ~1e-6
 PARAMS = PPCAParams(n_components=8, n_neighbors=12)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_snht_core():
+    """The JAX package's C++ core, built and loaded safely under xdist."""
+    load_jax_pha()
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from topotpu.qa import run_qa_spatial as j_spatial
 from topotpu_torch.homog import homogenize_elements as t_homog
 from topotpu_torch.qa import run_qa_non_spatial as t_non_spatial
 from topotpu_torch.qa import run_qa_spatial as t_spatial
+from jax_pha_core import load_jax_pha
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -41,6 +42,7 @@ def test_qa_network_matches_jax_and_the_scripts_counts():
 
     obs = {v: np.where(flags["jax"][v] == C.QA_OK, a, np.nan)
            for v, a in (("tmin", tmin), ("tmax", tmax))}
+    load_jax_pha()  # the JAX package's C++ core, built and loaded safely under xdist
     want = j_homog(obs, days.year, days.month, lon, lat)
     got = t_homog(obs, days.year, days.month, lon, lat, device=torch.device("cpu"))
     for var in want:

@@ -180,6 +180,40 @@ class _TileKrig(NamedTuple):
     #                       slots beyond a variable's anomaly neighbourhood size carry 0
 
 
+def _var_sizes(params: InterpParams, V: int):
+    """(kvs, kas, uniform): each of the ``V`` variables' neighbourhood and
+    anomaly sizes, and whether one ``krig_normals_indexed`` call serves them
+    all (every variable at the full selection, one anomaly size)."""
+    # Per-variable neighbourhood sizes: selection happens once at k_req (the
+    # max over variables); each variable masks the slots beyond its own k.
+    # top-k output is distance-sorted, so masked trailing slots are inert.
+    k_req = params.k_neighbors
+    kvs = (
+        tuple(int(k) for k in params.k_per_var)
+        if params.k_per_var else (k_req,) * V
+    )
+    ka_base = min(params.k_neighbors_anom, k_req)
+    kas = (
+        tuple(min(int(a), k_req) for a in params.ka_per_var)
+        if params.ka_per_var else (ka_base,) * V
+    )
+    if len(kvs) != V or len(kas) != V:
+        raise ValueError(
+            f"k_per_var/ka_per_var need one entry per variable ({V}): "
+            f"got {len(kvs)}/{len(kas)}"
+        )
+    if max(kvs) > k_req:
+        raise ValueError("k_per_var entries must be <= k_neighbors")
+    return kvs, kas, kvs == (k_req,) * V and len(set(kas)) == 1
+
+
+def krig_launches(params: InterpParams, n_vars: int) -> int:
+    """``krig_normals_indexed`` calls of one tile step for ``n_vars``
+    variables under ``params``: one, or one a variable with per-variable
+    sizes."""
+    return 1 if _var_sizes(params, n_vars)[2] else n_vars
+
+
 def _krig_tile_multi(
     inputs: TileInputs,
     all_vars: tuple,
@@ -205,27 +239,7 @@ def _krig_tile_multi(
 
     table, cell_tab = tile_tables(inputs, all_vars)
     nbrs = tile_neighborhoods(inputs, k_req, shared_validity)
-
-    # Per-variable neighbourhood sizes: selection happens once at k_req (the
-    # max over variables); each variable masks the slots beyond its own k.
-    # top-k output is distance-sorted, so masked trailing slots are inert.
-    kvs = (
-        tuple(int(k) for k in params.k_per_var)
-        if params.k_per_var else (k_req,) * V
-    )
-    ka_base = min(params.k_neighbors_anom, k_req)
-    kas = (
-        tuple(min(int(a), k_req) for a in params.ka_per_var)
-        if params.ka_per_var else (ka_base,) * V
-    )
-    if len(kvs) != V or len(kas) != V:
-        raise ValueError(
-            f"k_per_var/ka_per_var need one entry per variable ({V}): "
-            f"got {len(kvs)}/{len(kas)}"
-        )
-    if max(kvs) > k_req:
-        raise ValueError("k_per_var entries must be <= k_neighbors")
-    uniform = kvs == (k_req,) * V and len(set(kas)) == 1
+    kvs, kas, uniform = _var_sizes(params, V)
     solve_kw = dict(
         weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
