@@ -5,6 +5,7 @@
     python3 chip_smoke.py kernels    # phases 1-3 only (kernel times of one source tree), then
                                      # exit 0 without the last two lines
     python3 chip_smoke.py scatter    # the same with only the daily contraction's lines
+    python3 chip_smoke.py ok_solve   # only the OK solve: its build and its [ok_solve] lines
 
 Phases, in order; each prints one line, and any failure exits non-zero:
 
@@ -15,6 +16,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    builds phase 9's world on the host (numpy, 15-22 s on the card's host),
    and ``python -m topotpu_torch.cli --help`` (phase 12) runs in a process
    of its own: the script's 240 s budget had no room for either in turn.
+   The OK solve's library, the slowest to compile, is waited for only
+   where its lines begin, after the other kernels' lines.
 3. kernel vs plain version on the card at production shapes (65,536 cells,
    a 512-station pool, k = 32 and 64; the daily contraction at D = 744 and
    2,976), with the CPU parity tests' tolerances on 99.9 % of values, a cap
@@ -39,7 +42,11 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    (pair distances, xyz), B = 65,536 and k = 32 and 64: one call of each
    entry with the launch counters from 0, then the comparison with the
    plain version (``tests/test_pallas_krig.py``'s tolerances on every value,
-   ok flags identical, masked weights exactly 0).
+   ok flags identical, masked weights exactly 0), beside the library route
+   to the factorisation and solves (``torch.linalg.cholesky_ex`` +
+   ``torch.cholesky_solve`` on the plain version's matrices, which the port
+   never calls). ``python3 chip_smoke.py ok_solve`` builds only
+   ``ok_solve.cu`` and prints only these lines.
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. The run must launch
@@ -272,6 +279,9 @@ def phase_environment():
 
 
 def phase_build(names=KERNELS):
+    """Build ``csrc/<name>.cu`` for each name, one nvcc each, all at once;
+    returns the ``[build]`` lines (the wall and the compiler's register and
+    spill report) for the caller to print."""
     from concurrent.futures import ThreadPoolExecutor
 
     from topotpu_torch.kernels import _build
@@ -289,10 +299,8 @@ def phase_build(names=KERNELS):
                 reports.append(f"{entry[-1][0]}<{args}>")
             elif "registers" in ln or "spill" in ln:
                 reports.append(ln.strip())
-    log(f"[build] nvcc {_build.find_nvcc()} built {', '.join(names)} in "
-        f"{time.perf_counter() - t0:.3f} s")
-    for ln in reports:
-        log(f"[build] ptxas: {ln}")
+    return [f"[build] nvcc {_build.find_nvcc()} built {', '.join(names)} in "
+            f"{time.perf_counter() - t0:.3f} s"] + [f"[build] ptxas: {ln}" for ln in reports]
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -792,10 +800,35 @@ def _compare_ok(got, want, mask_t, k):
     return err, int((~want[2].astype(bool)).sum())
 
 
+def _library_ok(dp, dist_t, mask_t, par):
+    """The library route to the OK solve's factorisation and solves: the
+    (B, k, k) covariance and the two right-hand sides assembled by the plain
+    version (``cholesky.assemble_exp_cov``) outside the timed window, then
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` inside it. The
+    port never calls it; it times the factorisation and solves only."""
+    import torch
+
+    from topotpu_torch.kernels.cholesky import assemble_exp_cov
+
+    mask = mask_t.T > 0.5
+    C, c0, _ = assemble_exp_cov(dp.permute(2, 0, 1), dist_t.T, *par, mask, jitter_frac=1e-5)
+    rhs = torch.stack([c0, mask.to(C.dtype)], dim=-1).contiguous()
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(C)
+        return torch.cholesky_solve(rhs, L)
+
+    if not bool(torch.isfinite(library()).all()):
+        raise RuntimeError("the library route gave non-finite solutions")
+    return library
+
+
 def phase_ok_solve(rows64, dev):
     """The fused OK solve, both entries, at its own API (no path of the
     system calls it): one call of each at k = 32 with the counters from 0,
-    then kernel vs plain version at k = 32 and 64."""
+    then kernel vs plain version at k = 32 and 64, each beside the library
+    route (``_library_ok``, one timing a k for both entries: the same
+    matrices)."""
     import torch
 
     from topotpu_torch.kernels.ok_solve_fused import (
@@ -819,6 +852,7 @@ def phase_ok_solve(rows64, dev):
                             ok_solve_fused_xyz=ok_solve_fused_xyz.launches)
             if launches != dict(ok_solve_fused=1, ok_solve_fused_xyz=1):
                 raise RuntimeError(f"the OK-solve API did not launch its kernels: {launches}")
+        library_ms = cuda_ms(_library_ok(dp, dist_t, mask_t, par), 5, warmup=1)
         for name, (kern_fn, plain_fn, xyz) in entries.items():
             t = time.perf_counter()
             args = ((xyz3k if xyz else dp), dist_t, mask_t, *par)
@@ -827,15 +861,19 @@ def phase_ok_solve(rows64, dev):
             err, n_not_ok = _compare_ok(kern(), plain(), mask_t, k)
             ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3, warmup=1)
             B = dist_t.shape[1]
-            bnd = bound((sum(a.numel() for a in args) + (k + 1) * B) * 4 + B,
+            # the pair entry reads the diagonal and lower triangle only, as the
+            # JAX kernel does up to k = 32 (above, it reads rows of the whole
+            # matrix): tests/test_torch_ok_solve.py::test_ok_solve_pair_reads_lower_triangle
+            first = xyz3k.numel() if xyz else (k * (k + 1) // 2 if k <= 32 else k * k) * B
+            bnd = bound((first + sum(a.numel() for a in args[1:]) + (k + 1) * B) * 4 + B,
                         B * solve_flops(k, xyz=bool(xyz)))
             log(f"[ok_solve] {name} B={B} k={k}: max_abs_err {err:.3e} "
                 f"(not-ok cells {n_not_ok}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-                f"({time.perf_counter() - t:.1f} s)")
+                f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}; cholesky_ex + "
+                f"cholesky_solve {library_ms:.4f} ms ({time.perf_counter() - t:.1f} s)")
             if k == K:
                 report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    library_ms=None, **bnd)
+                                    library_ms=library_ms, **bnd)
         del dp
     return report, launches
 
@@ -2421,8 +2459,9 @@ def phase_cli(dev, helped):
 
 def main():
     mode = sys.argv[1] if sys.argv[1:] else "all"
-    if mode not in ("all", "kernels", "scatter") or sys.argv[2:]:
-        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, 'kernels' or 'scatter'")
+    if mode not in ("all", "kernels", "scatter", "ok_solve") or sys.argv[2:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, 'kernels', 'scatter' "
+                         f"or 'ok_solve'")
     t_start = time.perf_counter()
     dev, name = phase_environment()
     t_phase = [time.perf_counter()]
@@ -2446,10 +2485,17 @@ def run_phases(mode, dev, name, helped, t_start, lap):
 
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(1) as pool:  # the build thread waits on nvcc processes
-        build = pool.submit(phase_build, ("scatter_daily",) if mode == "scatter" else KERNELS)
-        st_prebuilt = stations_world() if mode == "all" else None
-        build.result()
+    names = dict(scatter=("scatter_daily",), ok_solve=("ok_solve",)).get(mode, KERNELS)
+    # the whole run first needs the OK solve's library after the kernels
+    # phase: its nvcc starts with the others and is waited for there
+    late = ("ok_solve",) if mode == "all" else ()
+    pool = ThreadPoolExecutor(2)  # build threads wait on nvcc processes
+    build = pool.submit(phase_build, tuple(n for n in names if n not in late))
+    late_build = pool.submit(phase_build, late) if late else None
+    pool.shutdown(wait=False)  # the builds submitted run to their end
+    st_prebuilt = stations_world() if mode == "all" else None
+    for ln in build.result():
+        log(ln)
     lap("build" + (", the station phase's world" if st_prebuilt else ""))
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
@@ -2458,10 +2504,15 @@ def run_phases(mode, dev, name, helped, t_start, lap):
     if mode == "scatter":
         scatter_lines(rows64, dev)
         return
+    if mode == "ok_solve":
+        phase_ok_solve(rows64, dev)
+        return
     report = phase_kernels(world, days, rows64, dev)
     lap("kernels")
     if mode == "kernels":
         return
+    for ln in late_build.result():
+        log(ln)
     ok_report, ok_launches = phase_ok_solve(rows64, dev)
     del rows64
     launches, step = phase_slice(world, days, dev)

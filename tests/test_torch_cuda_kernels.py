@@ -331,7 +331,8 @@ def _ok_inputs(dev, B, k, seed=2):
     rng = np.random.default_rng(seed)
     rows = _rows(dev, B, k, seed=seed)
     xyz3k, dist_t, mask_t = rows[0], rows[1], rows[2].clone()
-    mask_t[2:, 3] = 0.0
+    if B > 3:
+        mask_t[2:, 3] = 0.0
     xyz = xyz3k.reshape(3, k, B).permute(2, 1, 0)
     dp = pairwise_km_from_xyz(xyz, xyz).permute(1, 2, 0).contiguous()
     par = [torch.from_numpy(rng.uniform(lo, hi, B).astype(np.float32)).to(dev)
@@ -339,10 +340,34 @@ def _ok_inputs(dev, B, k, seed=2):
     return dp, xyz3k, (dist_t * mask_t).contiguous(), mask_t, par
 
 
-@pytest.mark.parametrize("k, B", [(1, 37), (8, 300), (32, 1000), (33, 129), (64, 513)])
+def _ok_tile(k):
+    """Cells one block of csrc/ok_solve.cu takes at k: 8 warps of 8, 4 or 1
+    systems (G = 4, 8, 32 lanes a system for k <= 16, 32, 64)."""
+    return 64 if k <= 16 else 32 if k <= 32 else 8
+
+
+_OK_EDGE_B = {"1": lambda k: 1, "tile-1": lambda k: _ok_tile(k) - 1,
+              "tile": _ok_tile, "tile+1": lambda k: _ok_tile(k) + 1,
+              "65536": lambda k: 65536}
+
+
+@pytest.mark.parametrize("k, B", [(1, 37), (8, 300), (32, 1000), (33, 129), (64, 513)] + [
+    (k, b) for k in (1, 2, 15, 16, 17, 31, 32, 33, 63, 64) for b in _OK_EDGE_B])
 @pytest.mark.parametrize("xyz", [False, True], ids=["pair", "xyz"])
 def test_ok_solve_kernel_matches_plain(dev, k, B, xyz):
+    """Kernel vs plain version, with an all-masked cell (1), a range below
+    1e-3 (2) and a NaN range (4) where B has them: the NaN cell's weights
+    and variance are NaN in both and it is not ok; masked weights of every
+    other cell are exactly 0."""
+    B = _OK_EDGE_B[B](k) if isinstance(B, str) else B
     dp, xyz3k, dist_t, mask_t, par = _ok_inputs(dev, B, k)
+    if B > 1:
+        mask_t[:, 1] = 0.0
+        dist_t[:, 1] = 0.0
+    if B > 2:
+        par[2][2] = 1e-5
+    if B > 4:
+        par[2][4] = float("nan")
     kern, plain = (ok_solve_fused_xyz, ok_solve_fused_xyz_ref) if xyz else \
         (ok_solve_fused, ok_solve_fused_ref)
     first = xyz3k if xyz else dp
@@ -356,7 +381,24 @@ def test_ok_solve_kernel_matches_plain(dev, k, B, xyz):
     np.testing.assert_allclose(w.cpu().numpy(), pw.cpu().numpy(), rtol=2e-4,
                                atol=5e-5 if k > 32 else 2e-5)
     np.testing.assert_allclose(var.cpu().numpy(), pvar.cpu().numpy(), rtol=2e-3, atol=1e-4)
-    assert torch.all(w[mask_t < 0.5] == 0.0)
+    finite = torch.isfinite(par[2])
+    assert torch.all(w[:, finite][mask_t[:, finite] < 0.5] == 0.0)
+    if B > 4:
+        assert torch.isnan(var[4]) and torch.isnan(w[:, 4]).all() and not ok[4]
+    if B > 1:
+        assert not ok[1] and torch.all(w[:, 1] == 0.0)
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+def test_ok_solve_pair_kernel_reads_lower_triangle(dev, k):
+    """The pair entry reads the diagonal and the strict lower triangle only:
+    NaN above the diagonal changes nothing."""
+    dp, _, dist_t, mask_t, par = _ok_inputs(dev, 300, k)
+    upper = torch.triu(torch.ones(k, k, dtype=torch.bool, device=dev), 1)
+    nan_up = dp.masked_fill(upper[:, :, None], float("nan"))
+    for a, b in zip(ok_solve_fused(dp, dist_t, mask_t, *par),
+                    ok_solve_fused(nan_up, dist_t, mask_t, *par)):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_bad_inputs(dev):

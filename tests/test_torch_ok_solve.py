@@ -131,3 +131,28 @@ def test_ok_solve_exactly_min_neighbors_is_ok(xyz):
     np.testing.assert_allclose(var, jvar, rtol=2e-3, atol=1e-4)
     np.testing.assert_allclose(w.sum(0), 1.0, atol=1e-5)
     assert np.all(w[3:] == 0.0)
+
+
+@pytest.mark.parametrize("k", [16, 64])
+def test_ok_solve_pair_reads_lower_triangle(k):
+    """A pair tensor whose strict upper triangle is NaN, against the
+    symmetric one. The port reads the diagonal and the lower triangle only,
+    at every k, so it gives the symmetric result. The JAX kernel does too at
+    k <= 32 (its unrolled factorisation reads columns); above 32 its looped
+    factorisation reads rows of the full matrix (``_chol_and_two_solves_looped``),
+    so NaN reaches every weight and variance and no cell is ok: recorded here
+    as that kernel's behaviour. ``chip_smoke.py``'s bound for the pair entry
+    counts k (k + 1) / 2 pair floats a cell where both read only those."""
+    B = 128
+    case = _setup(k + 7, B, k, 3)
+    nan_up = dict(case, dp=case["dp"].copy())
+    rows, cols = np.triu_indices(k, 1)
+    nan_up["dp"][rows, cols, :] = np.nan
+    for got, want in zip(_port(nan_up, False, B), _port(case, False, B)):
+        np.testing.assert_array_equal(got, want)
+    jw, jvar, jok = _jax(nan_up, False, B)
+    if k <= pallas_krig.LOOPED_K_THRESHOLD:
+        for got, want in zip((jw, jvar, jok), _jax(case, False, B)):
+            np.testing.assert_array_equal(got, want)
+    else:
+        assert np.isnan(jw).all() and np.isnan(jvar).all() and not jok.any()
