@@ -7,6 +7,9 @@
     python3 chip_smoke.py scatter    # the same with only the daily contraction's lines
     python3 chip_smoke.py ok_solve   # only the OK solve: its build and its [ok_solve] lines
 
+(``_multihost_worker`` is the mode of phase 13's workers, which the script
+starts itself.)
+
 Phases, in order; each prints one line, and any failure exits non-zero:
 
 1. environment: torch version, the device, and ``nvidia-smi``'s name and
@@ -178,7 +181,35 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    chain's normals come from one year of observations), and the first
    month's aggregate is the numpy mean of the decoded dailies within one
    lattice step.
-13. the card's name and power limit, one JSON line of kernels (each launch
+13. a job of two processes on the card (``[multihost]``): two workers of
+   this script, started as soon as the build ends (their imports, CUDA
+   start-up and rendezvous overlap the phases before), both on ``cuda:0``
+   (``local_mesh``: one card, two ranks), joined by gloo at a port this
+   script keeps bound and hands to process 0. Each runs
+   ``TileEngine.run_production_pair`` over its strided tiles of phase 12's
+   world (its inputs, pickled by this process) into its own in-memory shard
+   and ``manifest_pNNN.json``; then a barrier; the coordinator merges the
+   manifests and assembles the shards tile by tile as
+   ``build_virtual_mosaic`` maps them (tile_id % 2). Meanwhile this process
+   runs the same production on one device. It fails unless both workers
+   exit 0, each made its own tiles, their launches add up to the
+   one-process run's, and the assembled mosaics and merged manifests equal
+   the one-process run's bit for bit. Printed: each worker's start-up, wait,
+   run and launches.
+14. the split path (``[mesh]``): ``sharded_interp_tile_pair_flat`` over
+   ``make_mesh(devices=[cuda:0, cuda:0])`` on one 128 x 128 tile of phase
+   4's world (k = 32, the 512-station pool, both variables, the reconcile),
+   with the dynamic lattice (one reduction over the shards) and the fixed
+   one (none): each product bit for bit against the single-device step
+   (int16 buffer and scales), the launches of the two shards two of
+   ``krig_normals`` and two of the float or the packed contraction, both
+   forms' walls in turns. Then the sharded product fetched two ways
+   (gathered on the card and copied once; a copy and an event a shard, then
+   the columns put in order on the host), in turns. Then
+   ``TileEngine.run_pair`` over phase 12's world with the two-shard mesh
+   and with one device, each twice: mosaics, attributes and manifests bit
+   for bit, launches twice the one-device engine's.
+15. the card's name and power limit, one JSON line of kernels (each launch
    count is the sum over the main-path runs, each counted from 0; each
    kernel with its time, its plain version's, its bound and the library's
    way where there is one) and, as the last line,
@@ -191,6 +222,7 @@ dates, the synthetic world and the float64 oracle are the port's own.
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -250,6 +282,14 @@ CLI_START, CLI_END = "2015-01-01", "2015-12-31"
 CLI_CANDIDATES = (8, 16, 24, 32, 48)  # the CLI's --k-candidates default
 CLI_POINTS = 8          # point-stage sites, on land cells
 CLI_TRUTH_CELLS = 8192  # cells whose July normal is held against the truth
+# the split path: one 128 x 128 production tile of phase 4's world in two
+# shards of one card (see phase_mesh)
+MESH_SIDE = 128
+MESH_REPS = 5           # step walls of each form, in turns, after a warm-up
+# two processes on the card, each over its strided tiles of the [cli] world
+# (see start_multihost and multihost_worker)
+MH_PROCESSES = 2
+MH_TIMEOUT_S = 600      # the workers wait from the build to the end of [cli]
 KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
@@ -1252,6 +1292,17 @@ class MemoryMosaic:
         pass
 
 
+def memory_engine(*args, **kwargs):
+    """A ``TileEngine`` that writes its direct-mode mosaics into
+    ``MemoryMosaic``."""
+    from topotpu_torch.dist.engine import TileEngine
+
+    class MemoryEngine(TileEngine):
+        MOSAIC_WRITER = MemoryMosaic
+
+    return MemoryEngine(*args, **kwargs)
+
+
 def engine_inputs(side, n_stations, start, end, seed=0):
     """``bench_e2e.py::build``'s world with the port's types: a side x side
     world, every station valid in every month with the world's variogram;
@@ -2200,7 +2251,9 @@ def phase_cli(dev, helped):
     256 --stations 512 over 2015 (four tiles), and validate-f64's tile to
     ``F64_SIDE`` x ``F64_SIDE`` as in ``[f64]``. Also runs
     ``python -m topotpu_torch.cli --help`` (``helped``: the process that
-    ``start_cli_help`` started). Returns the launches."""
+    ``start_cli_help`` started). Returns the launches, and the interp
+    stage's inputs (config, rasters, days, station sets, k_table) for the
+    [multihost] and [mesh] phases."""
     import dataclasses
     import pathlib
     import tempfile
@@ -2246,9 +2299,6 @@ def phase_cli(dev, helped):
         log("[cli] " + json.dumps({"stage": name, "result": result,
                                     "wall_s": round(walls[name], 2)}, default=str)[:1500])
         return result
-
-    class MemoryEngine(TileEngine):
-        MOSAIC_WRITER = MemoryMosaic
 
     mosaics = {v: root / f"mosaic_{v}.h5" for v in VARS}
     try:
@@ -2313,7 +2363,7 @@ def phase_cli(dev, helped):
         sets = {v: steps._station_set_core(st["stn"][v], st["filled"][v], days) for v in VARS}
 
         def interp():
-            eng = MemoryEngine(cfg, rasters, days, root / "tiles", device=dev,
+            eng = memory_engine(cfg, rasters, days, root / "tiles", device=dev,
                                mosaic_paths=mosaics, k_table=ktab)
             st["eng"] = eng
             return steps._interp_core(eng, sets, 0, ktab, "optim-nnghs (in memory)")
@@ -2454,10 +2504,429 @@ def phase_cli(dev, helped):
         f"mean within one lattice step, point vs its plain version on the CPU max |diff| "
         f"{point_err:.3e} C, validate-f64 within the 0.05 C bar "
         f"({time.perf_counter() - t_phase:.1f} s in all)")
+    return total, dict(cfg=cfg, rasters=rasters, days=days, sets=sets, ktab=ktab)
+
+
+def phase_mesh(world, days, dev, cli):
+    """The cell-sharded step (``dist/mesh.py``) on two shards of the one card,
+    ``make_mesh(devices=[dev, dev])``, at full width: one 128 x 128 tile of
+    phase 4's world, k = 32, the 512-station pool, both variables, the
+    reconcile. ``sharded_interp_tile_pair_flat`` with the dynamic lattice
+    (the reduction over the shards) and with the fixed one: each product
+    bit for bit against the single-device step on the same inputs (int16
+    buffer and scales), the launches of each shard (one ``krig_normals``,
+    one float ``scatter_daily`` or one packed) and the reductions counted,
+    and both forms' walls in turns. Then the two ways to fetch the sharded
+    product (gathered on the first device and copied once, or one copy and
+    one event a shard into one pinned buffer, then the columns put in order
+    on the host), in turns. Then ``TileEngine.run_pair`` over the [cli]
+    world's four tiles (``cli``: what ``phase_cli`` returns), with that mesh
+    and with the one device, each twice, into ``MemoryMosaic``: mosaics and
+    manifests equal bit for bit. Returns the launches of the sharded runs."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from topotpu_torch.core import constants as C
+    from topotpu_torch.core.config import InterpParams, TopoConfig
+    from topotpu_torch.dist import mesh as tmesh
+    from topotpu_torch.interp.convert import fixed_scales_from_config
+    from topotpu_torch.interp.point import interp_tile_pair_flat, krig_launches
+    from topotpu_torch.io.synthetic import tile_inputs_from_world
+
+    t_phase = time.perf_counter()
+    rows, cols = np.unravel_index(np.arange(MESH_SIDE * MESH_SIDE), (MESH_SIDE, MESH_SIDE))
+    ti, layout = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
+    pair = _pair(ti, 9.0, 0.85)
+    params = InterpParams(k_neighbors=K)
+    fixed = torch.as_tensor(fixed_scales_from_config(TopoConfig(), 2), device=dev)
+    slot = torch.as_tensor(layout.slot_of_day.astype(np.int32), device=dev)
+    mesh = tmesh.make_mesh(devices=[dev, dev])
+    shards = tmesh.shard_pair_inputs(mesh, pair)
+    total = dict.fromkeys(_read_launches(), 0)
+    lines = []
+    for lattice, fx in (("dynamic", None), ("fixed", fixed)):
+        fn = tmesh.sharded_interp_tile_pair_flat(mesh, params, True, fixed=fx is not None,
+                                                 reconcile=True)
+        split = (lambda: fn(shards, slot, fx)) if fx is not None else (lambda: fn(shards, slot))
+        single = lambda: interp_tile_pair_flat(  # noqa: E731
+            pair, slot, params, True, fixed_scales=fx, reconcile=True)
+        want = single()
+        reductions = tmesh._pmin_pmax.calls
+        _zero_launches()
+        got = split()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        reductions = tmesh._pmin_pmax.calls - reductions
+        for k, n in launches.items():
+            total[k] += n
+        expect = dict(krig_normals=2, scatter_daily=0 if fx is not None else 2,
+                      scatter_daily_packed=2 if fx is not None else 0)
+        if launches != expect or reductions != (0 if fx is not None else 1):
+            raise RuntimeError(f"[mesh] {lattice}: launches {launches}, expected {expect}; "
+                               f"{reductions} reductions")
+        if not (torch.equal(got.buf, want.buf) and torch.equal(got.scales, want.scales)):
+            diff = int((got.buf != want.buf).sum())
+            raise RuntimeError(f"[mesh] {lattice}: the two-shard product differs from the "
+                               f"single-device step in {diff} values")
+        walls = {"one device": [], "two shards": []}
+        for _ in range(MESH_REPS):
+            for name, f in (("one device", single), ("two shards", split)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t) * 1e3)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        lines.append(f"{lattice} lattice: bit for bit (buffer {tuple(got.buf.shape)} int16 and "
+                     f"scales), launches of the two shards {launches}, {reductions} reduction; "
+                     f"step wall one device {med['one device']:.3f} ms, two shards "
+                     f"{med['two shards']:.3f} ms (medians of {MESH_REPS}, in turns; "
+                     + ", ".join(f"{k} " + " ".join(f"{w:.3f}" for w in v)
+                                 for k, v in walls.items()) + ")")
+    log(f"[mesh] sharded_interp_tile_pair_flat, mesh [{dev}, {dev}], one {MESH_SIDE}x{MESH_SIDE} "
+        f"tile, {N_STATIONS} stations, k={K}, {NDAYS} days, 2 variables, reconcile: "
+        + "; ".join(lines))
+
+    # the fetch of the sharded product: gathered on the first device then one
+    # copy and one event, or a copy and an event a shard into one pinned
+    # buffer, then the columns in order on the host
+    outs = [tmesh._pair_fixed_adapter(p, slot, fixed, params=params, shared_validity=True,
+                                      reconcile=True) for p in shards]
+    torch.cuda.synchronize()
+    rows_n, half = outs[0].buf.shape
+    gathered = torch.empty((rows_n, 2 * half), dtype=torch.int16, pin_memory=True)
+    per_shard = torch.empty((2, rows_n, half), dtype=torch.int16, pin_memory=True)
+
+    def fetch_gathered():
+        gathered.copy_(torch.cat([o.buf for o in outs], dim=1), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return gathered.numpy()
+
+    def fetch_per_shard():
+        events = []
+        for j, o in enumerate(outs):
+            per_shard[j].copy_(o.buf, non_blocking=True)
+            events.append(torch.cuda.Event())
+            events[-1].record()
+        for e in events:
+            e.synchronize()
+        return np.concatenate(list(per_shard.numpy()), axis=1)
+
+    if not np.array_equal(fetch_gathered(), fetch_per_shard()):
+        raise RuntimeError("[mesh] the two fetches of the sharded product differ")
+    fetch = {"gathered": [], "per shard": []}
+    for _ in range(10):
+        for name, f in (("gathered", fetch_gathered), ("per shard", fetch_per_shard)):
+            t = time.perf_counter()
+            f()
+            fetch[name].append((time.perf_counter() - t) * 1e3)
+    log(f"[mesh] fetch of the two-shard product ({rows_n} x {2 * half} int16, "
+        f"{rows_n * 2 * half * 2 / 2**20:.1f} MiB) into pinned host memory, medians of 10 in "
+        f"turns: gathered on {dev} + one copy + one event {np.median(fetch['gathered']):.3f} ms, "
+        f"one copy + one event a shard + host column order {np.median(fetch['per shard']):.3f} ms")
+    del outs, shards, pair, ti
+
+    # the engine over the [cli] world with the two-shard mesh and with one device
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    root = pathlib.Path(tmp.name)
+    VARS = (C.TMIN, C.TMAX)
+    results, walls = {}, {"one device": [], "two shards": []}
+    try:
+        for rep in range(2):
+            for name, kw in (("one device", dict(device=dev)), ("two shards", dict(mesh=mesh))):
+                out = root / f"{name.replace(' ', '_')}_{rep}"
+                mosaics = {v: out / f"mosaic_{v}.h5" for v in VARS}
+                eng = memory_engine(cli["cfg"], cli["rasters"], cli["days"], out / "tiles",
+                                   mosaic_paths=mosaics, k_table=cli["ktab"], **kw)
+                _zero_launches()
+                t = time.perf_counter()
+                counts = eng.run_pair(C.TMIN, C.TMAX, cli["sets"][C.TMIN], cli["sets"][C.TMAX],
+                                      progress=False)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t)
+                launches = _read_launches()
+                store = {v: MemoryMosaic.STORE.pop(mosaics[v]) for v in VARS}
+                man = json.loads((out / "tiles" / "manifest.json").read_text())["tiles"]
+                for info in man.values():
+                    del info["ts"]
+                results[name, rep] = (counts, store, man, launches)
+                if name == "two shards":
+                    for k, n in launches.items():
+                        total[k] += n
+        tiles = list(eng.tiling.land_tiles(cli["rasters"].landmask))
+        krig = sum(krig_launches(eng._params_for(t, *VARS) or cli["cfg"].interp, len(VARS))
+                   for t in tiles)
+        for rep in range(2):
+            one, two = results["one device", rep], results["two shards", rep]
+            want = dict(krig_normals=2 * krig, scatter_daily=0, scatter_daily_packed=2 * len(tiles))
+            if two[3] != want or two[0] != one[0] or one[0] != {v: len(tiles) for v in VARS}:
+                raise RuntimeError(f"[mesh] engine: counts {two[0]} / {one[0]}, launches "
+                                   f"{two[3]}, expected {want}")
+            for v in VARS:
+                for key in ("daily", "normal", "se"):
+                    if not np.array_equal(one[1][v][key], two[1][v][key], equal_nan=True):
+                        raise RuntimeError(f"[mesh] engine: the two-shard {v} {key} differs")
+                if one[1][v]["attrs"] != two[1][v]["attrs"]:
+                    raise RuntimeError(f"[mesh] engine: {v} attrs {two[1][v]['attrs']}")
+            if one[2] != two[2]:
+                raise RuntimeError("[mesh] engine: the manifests differ")
+    finally:
+        tmp.cleanup()
+    var_cells = 2 * cli["cfg"].tile_rows * cli["cfg"].tile_cols * len(tiles)
+    log(f"[mesh] TileEngine.run_pair over the [cli] world ({len(tiles)} tiles of "
+        f"{cli['cfg'].tile_rows}x{cli['cfg'].tile_cols}, its k_table on "
+        f"{len(cli['ktab'])} tiles), each run twice in turns: one device "
+        + " ".join(f"{w:.3f}" for w in walls["one device"]) + " s ("
+        + " ".join(f"{var_cells / w:.1f}" for w in walls["one device"])
+        + " var-cells/s), two shards " + " ".join(f"{w:.3f}" for w in walls["two shards"])
+        + " s (" + " ".join(f"{var_cells / w:.1f}" for w in walls["two shards"])
+        + f" var-cells/s); launches of a two-shard run {results['two shards', 1][3]}; mosaics, "
+        f"attributes and manifests bit for bit ({time.perf_counter() - t_phase:.1f} s in all)")
+    return total
+
+
+def start_multihost():
+    """Start ``MH_PROCESSES`` workers of this script (``multihost_worker``),
+    beside the kernel build's end: each imports torch, takes its device
+    (``local_mesh``: both take the one card), joins the process group by
+    gloo and waits for the [cli] world's inputs. Process 0 serves the
+    rendezvous on a listening socket bound here, so no other program can
+    take the port first. Their output goes to files (a pipe left unread
+    could fill and block them). Returns what ``phase_multihost`` needs."""
+    import pathlib
+    import socket
+    import tempfile
+
+    from topotpu_torch.dist.multihost import COORDINATOR_FD_ENV
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_multihost_"))
+    repo = pathlib.Path(__file__).resolve().parent
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    sock.listen()
+    coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    workers = dict(procs=[], root=root, coordinator=coordinator)
+    try:
+        for rank in range(MH_PROCESSES):
+            env = dict(os.environ)
+            if rank == 0:
+                env[COORDINATOR_FD_ENV] = str(sock.fileno())
+            with open(root / f"worker{rank}.log", "w") as out:
+                workers["procs"].append(subprocess.Popen(
+                    [sys.executable, str(repo / "chip_smoke.py"), "_multihost_worker", str(rank),
+                     coordinator, str(root), repr(time.time())],
+                    cwd=repo, env=env, pass_fds=(sock.fileno(),) if rank == 0 else (),
+                    stdout=out, stderr=subprocess.STDOUT, text=True))
+    except BaseException:
+        stop_multihost(workers)
+        raise
+    finally:
+        sock.close()
+    return workers
+
+
+def stop_multihost(workers):
+    """Kill the workers that still run and remove their directory."""
+    for proc in workers["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(workers["root"], ignore_errors=True)
+
+
+def _mh_inputs(root):
+    return root / "inputs.pkl"
+
+
+def _shard_file(root, var, rank):
+    return root / f"shard_{var}_p{rank:03d}.npz"
+
+
+def multihost_worker(rank, coordinator, root, spawned_at):
+    """One process of ``phase_multihost`` (``python3 chip_smoke.py
+    _multihost_worker RANK COORDINATOR DIR SPAWNED_AT``): ``init_multihost``,
+    its device from ``local_mesh``, then, once the parent has written the
+    [cli] world's inputs, ``TileEngine.run_production_pair`` over its strided
+    tiles into its own ``MemoryMosaic`` shard and manifest; the shard goes to
+    a file, then a barrier; the coordinator merges the manifests and
+    assembles the shards tile by tile as ``build_virtual_mosaic`` maps them
+    (tile_id % P). Prints one JSON line: its walls and launches."""
+    import pathlib
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from topotpu_torch.core import constants as C
+    from topotpu_torch.dist import multihost
+    from topotpu_torch.kernels import _build
+
+    root = pathlib.Path(root)
+    for name in ("krig_normals", "scatter_daily"):  # built by the parent: never twice
+        if not _build.library_path(name).is_file():
+            raise RuntimeError(f"{name}: the parent's build is missing")
+    ctx = multihost.init_multihost(coordinator, MH_PROCESSES, rank)
+    mesh = multihost.local_mesh()
+    torch.zeros(1, device=mesh.devices[0])  # the CUDA context, before the inputs come
+    ready = time.time() - spawned_at
+    t_wait = time.perf_counter()
+    while not _mh_inputs(root).exists():
+        if time.perf_counter() - t_wait > MH_TIMEOUT_S:
+            raise RuntimeError("no inputs from the parent")
+        time.sleep(0.05)
+    waited = time.perf_counter() - t_wait
+    with open(_mh_inputs(root), "rb") as f:  # written by the parent process
+        cli = pickle.load(f)
+
+    VARS = (C.TMIN, C.TMAX)
+    mosaics = {v: root / f"mosaic_{v}.h5" for v in VARS}
+    eng = memory_engine(cli["cfg"], cli["rasters"], cli["days"], root / "tiles", ctx=ctx,
+                       mosaic_paths=mosaics, k_table=cli["ktab"])
+    _zero_launches()
+    t = time.perf_counter()
+    # returns once every tile is written: every step and fetch has ended
+    counts = eng.run_production_pair(C.TMIN, C.TMAX, cli["sets"][C.TMIN], cli["sets"][C.TMAX],
+                                     years_per_chunk=1, progress=False)
+    run = time.perf_counter() - t
+    launches = _read_launches()
+    for v in VARS:
+        store = MemoryMosaic.STORE.pop(eng._mosaic_path(v))
+        np.savez(_shard_file(root, v, rank), daily=store["daily"], normal=store["normal"],
+                 se=store["se"], attrs=json.dumps(store["attrs"]))
+    multihost.barrier("shards written")
+    assembled = None
+    if ctx.is_coordinator:
+        t = time.perf_counter()
+        for chunk in sorted((root / "tiles").glob("chunk_*_*")):
+            multihost.merge_manifests(chunk)
+        tiles = list(eng.tiling.land_tiles(cli["rasters"].landmask))
+        for v in VARS:
+            shards = [np.load(_shard_file(root, v, i)) for i in range(MH_PROCESSES)]
+            for i, sh in enumerate(shards):
+                attrs = json.loads(str(sh["attrs"]))
+                if not (attrs.get("complete") and attrs["process_index"] == i
+                        and attrs["process_count"] == MH_PROCESSES):
+                    raise RuntimeError(f"shard {v} p{i}: attrs {attrs}")
+            out = {k: np.array(shards[0][k]) for k in ("daily", "normal", "se")}
+            out["normal"][:] = out["se"][:] = np.nan
+            out["daily"][:] = -32768
+            for ts in tiles:
+                sl = (slice(None), slice(ts.row0, ts.row0 + ts.nrows),
+                      slice(ts.col0, ts.col0 + ts.ncols))
+                for k in out:
+                    out[k][sl] = shards[ts.tile_id % MH_PROCESSES][k][sl]
+            n_tiles = sum(json.loads(str(sh["attrs"]))["n_tiles"] for sh in shards)
+            np.savez(root / f"assembled_{v}.npz", n_tiles=n_tiles, **out)
+        assembled = time.perf_counter() - t
+    dist.destroy_process_group()
+    print(json.dumps(dict(rank=rank, device=str(mesh.devices), startup_s=ready,
+                          waited_s=waited, run_s=run, assemble_s=assembled,
+                          tiles=counts, launches=launches)), flush=True)
+
+
+def phase_multihost(workers, dev, cli):
+    """Two OS processes on the one card (both ``cuda:0``, joined by gloo),
+    each ``TileEngine.run_production_pair`` over its strided tiles of the
+    [cli] world into its own ``MemoryMosaic`` shard and manifest; the
+    coordinator assembles them (see ``multihost_worker``). Here: the
+    workers get the inputs, this process runs the one-process engine on
+    them meanwhile, and the assembled mosaics and the merged manifest are
+    held bit for bit against it. A failure in either worker fails the
+    phase. Returns the workers' launches."""
+    import pickle
+
+    from topotpu_torch.core import constants as C
+
+    t_phase = time.perf_counter()
+    root = workers["root"]
+    tmp = root / "inputs.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(cli, f)
+    tmp.replace(_mh_inputs(root))
+
+    VARS = (C.TMIN, C.TMAX)
+    ref_root = root / "one_process"
+    mosaics = {v: ref_root / f"mosaic_{v}.h5" for v in VARS}
+    eng = memory_engine(cli["cfg"], cli["rasters"], cli["days"], ref_root / "tiles", device=dev,
+                       mosaic_paths=mosaics, k_table=cli["ktab"])
+    _zero_launches()
+    t = time.perf_counter()
+    counts = eng.run_production_pair(C.TMIN, C.TMAX, cli["sets"][C.TMIN], cli["sets"][C.TMAX],
+                                     years_per_chunk=1, progress=False)
+    ref_wall = time.perf_counter() - t
+    ref_launches = _read_launches()
+    ref = {v: MemoryMosaic.STORE.pop(mosaics[v]) for v in VARS}
+
+    reports = []
+    for rank, proc in enumerate(workers["procs"]):
+        try:
+            proc.wait(timeout=MH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out = (root / f"worker{rank}.log").read_text()
+        if proc.returncode != 0:
+            raise RuntimeError(f"[multihost] worker {rank} exited {proc.returncode}:\n"
+                               f"{out[-3000:]}")
+        reports.append(json.loads(out.strip().splitlines()[-1]))
+    for v in VARS:
+        got = np.load(root / f"assembled_{v}.npz")
+        for key in ("daily", "normal", "se"):
+            if not np.array_equal(got[key], ref[v][key], equal_nan=True):
+                raise RuntimeError(f"[multihost] the assembled {v} {key} differs from the "
+                                   f"one-process run in {int((got[key] != ref[v][key]).sum())}"
+                                   " values")
+        if int(got["n_tiles"]) != ref[v]["attrs"]["n_tiles"]:
+            raise RuntimeError(f"[multihost] {v}: {int(got['n_tiles'])} tiles in the shards")
+    chunks = sorted(p.name for p in (ref_root / "tiles").glob("chunk_*_*"))
+    for chunk in chunks:
+        mans = []
+        for d in (root / "tiles" / chunk, ref_root / "tiles" / chunk):
+            man = json.loads((d / "manifest.json").read_text())["tiles"]
+            for info in man.values():
+                del info["ts"]
+                info["file"] = re.sub(r"_p\d{3}(?=\.h5$)", "", info["file"])
+            mans.append(man)
+        if mans[0] != mans[1]:
+            raise RuntimeError(f"[multihost] {chunk}: the merged manifest differs")
+    for rank, rep in enumerate(reports):
+        owned = {v: len([t for t in eng.tiling.land_tiles(cli["rasters"].landmask)
+                         if t.tile_id % MH_PROCESSES == rank]) for v in VARS}
+        if rep["tiles"] != owned:
+            raise RuntimeError(f"[multihost] worker {rank} made {rep['tiles']}, owns {owned}")
+    total = dict.fromkeys(_read_launches(), 0)
+    for rep in reports:
+        for k, n in rep["launches"].items():
+            total[k] += n
+    if total != ref_launches:
+        raise RuntimeError(f"[multihost] the workers launched {total}, the one-process run "
+                           f"{ref_launches}")
+    log(f"[multihost] {MH_PROCESSES} processes on {dev} (gloo, rendezvous at "
+        f"{workers['coordinator']} on a socket held from the start), each "
+        f"run_production_pair over its strided tiles of the [cli] world into its own "
+        f"MemoryMosaic shard and manifest_pNNN.json: "
+        + "; ".join(f"worker {r['rank']} on {r['device']}: ready {r['startup_s']:.3f} s after "
+                    f"its start (imports, CUDA, rendezvous), waited {r['waited_s']:.3f} s for "
+                    f"the inputs, run {r['run_s']:.3f} s, tiles {r['tiles']}, launches "
+                    f"{r['launches']}" + (f", assembled the shards in {r['assemble_s']:.3f} s"
+                                          if r["assemble_s"] is not None else "")
+                    for r in reports)
+        + f"; one-process run {counts} in {ref_wall:.3f} s, launches {ref_launches}; merged "
+        f"manifests of {chunks} and "
+        f"the assembled mosaics bit for bit against it ({time.perf_counter() - t_phase:.1f} s "
+        f"in all)")
     return total
 
 
 def main():
+    if sys.argv[1:2] == ["_multihost_worker"]:
+        rank, coordinator, root, spawned_at = sys.argv[2:]
+        multihost_worker(int(rank), coordinator, root, float(spawned_at))
+        return
     mode = sys.argv[1] if sys.argv[1:] else "all"
     if mode not in ("all", "kernels", "scatter", "ok_solve") or sys.argv[2:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}: none, 'kernels', 'scatter' "
@@ -2471,15 +2940,18 @@ def main():
         log(f"[phase] {name} took {t_phase[-1] - t_phase[-2]:.1f} s")
 
     helped = start_cli_help() if mode == "all" else None
+    workers = {}
     try:
-        run_phases(mode, dev, name, helped, t_start, lap)
+        run_phases(mode, dev, name, helped, workers, t_start, lap)
     finally:
         if helped is not None and helped.poll() is None:
             helped.kill()
             helped.wait()
+        if workers:
+            stop_multihost(workers)
 
 
-def run_phases(mode, dev, name, helped, t_start, lap):
+def run_phases(mode, dev, name, helped, workers, t_start, lap):
     from topotpu_torch.core.dates import get_days_metadata
     from topotpu_torch.io.synthetic import make_world
 
@@ -2496,6 +2968,8 @@ def run_phases(mode, dev, name, helped, t_start, lap):
     st_prebuilt = stations_world() if mode == "all" else None
     for ln in build.result():
         log(ln)
+    if mode == "all":  # their start-up overlaps the phases before [multihost]
+        workers.update(start_multihost())
     lap("build" + (", the station phase's world" if st_prebuilt else ""))
     world = make_world(np.random.default_rng(0), nrows=N_SIDE, ncols=N_SIDE,
                        n_stations=N_STATIONS, ndays=NDAYS)
@@ -2535,9 +3009,17 @@ def run_phases(mode, dev, name, helped, t_start, lap):
     phase_infill(st_world, dev)
     del st_world
     lap("infill")
-    for kernel, n in phase_cli(dev, helped).items():
+    cli_launches, cli = phase_cli(dev, helped)
+    for kernel, n in cli_launches.items():
         launches[kernel] += n
     lap("cli")
+    for kernel, n in phase_multihost(workers, dev, cli).items():
+        launches[kernel] += n
+    lap("multihost")
+    for kernel, n in phase_mesh(world, days, dev, cli).items():
+        launches[kernel] += n
+    del cli
+    lap("mesh")
     launches.update(ok_launches)
     report.update(ok_report)
 

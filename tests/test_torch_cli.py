@@ -452,6 +452,9 @@ def test_mosaic_refuses_to_publish_empty(tmp_path):
 
 
 def test_mosaic_of_process_shards_raises_until_ported(tmp_path):
+    """Manifests that claim tiles in process shards send the mosaic stage to
+    the shard assembly; with no shard on disk it raises the JAX package's
+    message, and publishes nothing."""
     cfg = TopoConfig(data_dir=str(tmp_path / "data"), start_date="2015-01-01",
                      end_date="2015-01-31", tile_rows=24, tile_cols=24)
     tsteps.step_synth_data(cfg, nrows=24, ncols=24, n_stations=30)
@@ -460,9 +463,10 @@ def test_mosaic_of_process_shards_raises_until_ported(tmp_path):
     man = {"tiles": {"tmin_00000": {"file": "mosaic_tmin_p000.h5", "ts": 1.0}}}
     (tiles / "manifest_p000.json").write_text(json.dumps(man))
     assert tsteps._latest_layout(tiles) is None  # not merged yet
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(RuntimeError, match=r"no mosaic_tmin_p\*\.h5 shards found"):
         tsteps.step_mosaic(cfg)
     assert tsteps._latest_layout(tiles) == "shard"
+    assert not any((tmp_path / "data" / f"mosaic_{v}.h5").exists() for v in VARS)
 
 
 def test_validate_day_axis_mismatch_fails_loudly(tmp_path):
@@ -714,10 +718,13 @@ def test_host_stages_need_no_gpu(runs, tmp_path, monkeypatch):
 def test_multihost_host_side(tmp_path):
     assert multihost.init_multihost() == multihost.MultihostContext()
     assert multihost.init_multihost(None, 1, 0) == multihost.MultihostContext()
-    for args in (("localhost:1234", 2, 0), (None, 4, 1), ("localhost:1234", 1, 0)):
-        with pytest.raises(ValueError, match="Queue 1 item 6"):
+    for args, msg in (((None, 4, 1), "needs --coordinator"),
+                      (("localhost:1234", 2, None), "needs --coordinator"),
+                      (("localhost:1234", 2, 2), r"not in \[0, 2\)"),
+                      (("localhost", 2, 0), "is not host:port")):
+        with pytest.raises(ValueError, match=msg):
             multihost.init_multihost(*args)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="needs --coordinator"):
         tmain.main(["interp", "--num-processes", "2", "--process-id", "0",
                     "--data-dir", str(tmp_path / "none")])
 

@@ -45,13 +45,13 @@ class _Engine(TileEngine):
     PIPELINE_DEPTH = 1  # a fetch pool of 5 buffers: fewer than a chunk's takes
 
 
-def _run(out, device):
+def _run(out, device, mesh=None):
     world, days, rasters, a, b = engine_inputs(64, 80, "2015-01-01", "2017-12-31", seed=3)
     cfg = TopoConfig(tile_rows=32, tile_cols=32,
                      interp=InterpParams(k_neighbors=16, max_tile_stations=64))
     mosaics = {v: out / f"mosaic_{v}.h5" for v in ("tmin", "tmax")}
     eng = _Engine(cfg, rasters, days, out / "tiles", device=device, mosaic_paths=mosaics,
-                  k_table={2: {"tmin": (12, 8), "tmax": (16, 12)}})
+                  k_table={2: {"tmin": (12, 8), "tmax": (16, 12)}}, mesh=mesh)
     counts = eng.run_production_pair("tmin", "tmax", a, b, years_per_chunk=1, progress=False)
     assert counts == {"tmin": 12, "tmax": 12}
     store = {v: MemoryMosaic.STORE.pop(p) for v, p in mosaics.items()}
@@ -95,3 +95,19 @@ def test_engine_on_the_card_matches_the_cpu_run(dev, tmp_path):
     assert 1 <= rows[2 * (365 + 24)] <= 5 and 1 <= rows[2 * (366 + 24)] <= 4
     assert all(len(ring) <= 1 for ring in eng._staging._rings.values())
     assert len(eng._staging._rings) == 1 and eng._staging.nbytes > 0
+
+
+def test_two_shard_mesh_on_the_card_equals_one_device(dev, tmp_path):
+    """The engine over two shards of the card (the mesh lists it twice)
+    writes what the one-device engine writes, bit for bit, the k_table
+    tile included: its gain rows are computed in plain torch, whose batched
+    products may pick their kernel by the batch size (``kernels/wls.py``)."""
+    from topotpu_torch.dist.mesh import make_mesh
+
+    _, one, man_one = _run(tmp_path / "one", dev)
+    eng, two, man_two = _run(tmp_path / "two", None, mesh=make_mesh(devices=[dev, dev]))
+    assert len(eng.mesh.devices) == 2 and man_two == man_one
+    for var in ("tmin", "tmax"):
+        for key in ("daily", "normal", "se"):
+            np.testing.assert_array_equal(two[var][key], one[var][key])
+        assert two[var]["attrs"] == one[var]["attrs"]

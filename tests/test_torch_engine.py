@@ -232,6 +232,38 @@ def test_k_table_per_variable_k_matches_jax(runs):
     np.testing.assert_array_equal(d_k[:, 24:], d_d[:, 24:])
 
 
+@pytest.mark.parametrize("direct", [True, False])
+def test_two_shard_mesh_equals_one_device(runs, world, tmp_path, direct):
+    """The engine over a mesh that lists the CPU twice (each tile's cells in
+    two shards) writes what the one-device engine writes, bit for bit: the
+    direct mosaics on the run-global lattice, and the per-tile files whose
+    scales are the min and max over both shards."""
+    from topotpu_torch.dist.mesh import make_mesh
+
+    mesh = make_mesh(devices=[CPU, CPU])
+    mode = "direct" if direct else "tiles"
+    d = tmp_path / mode
+    eng = _engine("port", world, d, direct=direct, mesh=mesh)
+    assert eng.mesh is mesh and eng.device == CPU
+    a, b = world[1]["port"]
+    assert eng.run_pair("tmin", "tmax", a, b, progress=False) == {"tmin": 4, "tmax": 4}
+    want = runs[mode]["port"]
+    _manifests_equal(d / "tiles", want / "tiles")
+    if direct:
+        _mosaics_equal(d, want)
+        return
+    for var in VARS:
+        for tile in range(4):
+            name = f"{var}_tile{tile:05d}.h5"
+            with h5py.File(d / "tiles" / name) as fg, h5py.File(want / "tiles" / name) as fw:
+                assert sorted(fg) == sorted(fw)
+                for ds in (var, f"{var}_normal", f"{var}_se"):
+                    np.testing.assert_array_equal(fg[ds][...], fw[ds][...])
+                    assert dict(fg[ds].attrs.items()).keys() == dict(fw[ds].attrs.items()).keys()
+                    for key in ("scale_factor", "add_offset"):
+                        assert fg[ds].attrs[key] == fw[ds].attrs[key]
+
+
 def test_resume_and_fresh_invalidation(runs, world, tmp_path):
     """Dropped manifest claims recompute exactly those tiles, bit for bit; a
     changed pack window rebuilds the mosaic and every tile; a corrupt mosaic

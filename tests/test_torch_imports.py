@@ -25,7 +25,8 @@ for needed in ("core.config", "core.dates", "core.grid", "core.constants", "io.s
                "infill.post_infill", "interp.point", "dist.engine", "dist.multihost",
                "io.ncdf", "io.rasters", "utils.status", "qa", "qa.qa_temp", "qa.qa_location",
                "homog", "geo.regions", "io.stndb", "io.build_db", "io.ushcn", "io.download",
-               "interp.f64check", "utils.profiling", "cli", "cli.main", "cli.steps"):
+               "interp.f64check", "utils.profiling", "cli", "cli.main", "cli.steps",
+               "dist.mesh"):
     assert "topotpu_torch." + needed in names, needed
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed
 from topotpu_torch.kernels.scatter_daily import scatter_daily
@@ -56,6 +57,16 @@ from topotpu_torch.io.stndb import StationDB  # h5py only once a file opens
 from topotpu_torch.cli.main import main
 from topotpu_torch.cli.steps import step_interp, stage_resume_status
 from topotpu_torch.dist.multihost import init_multihost, merge_manifests, partition_tiles
+# the rest of the JAX package's dist layer: the mesh, the sharded steps, the
+# process group's helpers and the virtual master over the mosaic shards
+from topotpu_torch.dist.mesh import CELL_AXIS, make_mesh, shard_pair_inputs, shard_tile_inputs
+from topotpu_torch.dist.mesh import sharded_interp_tile, sharded_interp_tile_flat
+from topotpu_torch.dist.mesh import sharded_interp_tile_pair_flat, tile_input_specs
+from topotpu_torch.dist.multihost import barrier, global_mesh, initialize, is_coordinator
+from topotpu_torch.dist.multihost import local_mesh
+from topotpu_torch.io.ncdf import build_virtual_mosaic
+import torch.distributed as dist
+assert not dist.is_initialized()  # importing joins no process group
 roots = ("jax", "jaxlib", "topotpu", "h5py", "triton")
 bad = sorted(m for m in sys.modules
              if m in roots or m.startswith(tuple(r + "." for r in roots)))

@@ -1,7 +1,8 @@
 """topotpu_torch: topotpu on PyTorch and CUDA, from the station database to
 the gridded product: station QA and homogenisation, the station infill, the
-station-side kriging stages, the tile interpolation step and the engine
-that drives it on one GPU, and the pipeline CLI that chains the stages.
+station-side kriging stages, the tile interpolation step, its cell-sharded
+form over several devices and the engine that drives it, jobs over several
+processes, and the pipeline CLI that chains the stages.
 
 A second package beside ``topotpu`` (the JAX reference), with the same
 subpackage names so that each module's counterpart is easy to find:
@@ -31,8 +32,9 @@ subpackage names so that each module's counterpart is easy to find:
                        the JAX package's state, per-station variogram
                        parameters, cross-validation and nnghs optimisation,
                        the float64 validation mode
-``dist``               the single-GPU production engine (``TileEngine``)
-                       and the host side of a multi-process job
+``dist``               the device mesh and the cell-sharded tile step,
+                       the production engine (``TileEngine``) and jobs
+                       over several processes (``torch.distributed``)
 ``cli``                the pipeline CLI, ``python -m topotpu_torch.cli``
 ``utils``              status lines, wall-time scopes, profiler traces
 ``oracle``             float64 numpy oracles

@@ -26,10 +26,18 @@ Stages (in pipeline order):
     xval-infill  hold-out infill scores
 
 Device: the first CUDA device, taken by the first stage that needs one;
-there is no fallback to the CPU, which runs only when TOPOTPU_PLATFORM=cpu
-is set. The artifacts are the JAX package's
-(``python -m topotpu.cli``), so either CLI reads, resumes and finishes a
-data_dir that the other wrote.
+interp steps over this process's share of the visible devices (its mesh,
+``config.mesh.n_devices`` of them). There is no fallback to the CPU, which
+runs only when TOPOTPU_PLATFORM=cpu is set.
+
+Several processes: start ``interp`` once a process, each with
+``--coordinator host:port --num-processes N --process-id i``; process 0
+serves the rendezvous (``torch.distributed``, gloo) at that address. Each
+interpolates the tiles with ``tile_id % N == i``; then one ``mosaic`` run
+merges the manifests and publishes the mosaic over the processes' shards.
+
+The artifacts are the JAX package's (``python -m topotpu.cli``), so either
+CLI reads, resumes and finishes a data_dir that the other wrote.
 """
 
 from __future__ import annotations
@@ -37,14 +45,11 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import os
 import pathlib
 import sys
 
-import torch
-
 from topotpu_torch.core.config import TopoConfig
-from topotpu_torch.core.device import cuda_device
+from topotpu_torch.core.device import platform_devices
 
 
 def _load_config(path: str | None) -> TopoConfig:
@@ -58,10 +63,8 @@ def _load_config(path: str | None) -> TopoConfig:
 
 def _device():
     """``TOPOTPU_PLATFORM=cpu``: the CPU. Anything else, or nothing: the first
-    CUDA device (``cuda_device`` raises where there is none)."""
-    if os.environ.get("TOPOTPU_PLATFORM") == "cpu":
-        return torch.device("cpu")
-    return cuda_device()
+    CUDA device (``platform_devices`` raises where there is none)."""
+    return platform_devices()[0]
 
 
 def main(argv=None) -> int:
@@ -82,9 +85,9 @@ def main(argv=None) -> int:
                     help="interp: years per production chunk (0 = single span)")
     ap.add_argument("--coordinator", default=None,
                     help="interp: coordinator host:port of a multi-process "
-                         "job (not ported yet: one process)")
+                         "job (process 0 serves the rendezvous there)")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="interp: total processes in the job (1 only)")
+                    help="interp: total processes in the job")
     ap.add_argument("--process-id", type=int, default=None,
                     help="interp: this process's rank [0, num-processes)")
     ap.add_argument("--regions", default=None,
@@ -225,10 +228,10 @@ def main(argv=None) -> int:
 
         ctx = init_multihost(args.coordinator, args.num_processes,
                              args.process_id)
+        # the engine steps over this process's mesh (dist.multihost.local_mesh)
         report("interp", steps.step_interp(cfg, chunk_years=args.chunk_years,
                                            ctx=ctx, nnghs_path=args.nnghs,
-                                           use_nnghs=not args.no_nnghs,
-                                           device=device()))
+                                           use_nnghs=not args.no_nnghs))
     if stage in ("mosaic", "all"):
         report("mosaic", steps.step_mosaic(cfg))
     if stage in ("validate", "all"):

@@ -591,11 +591,16 @@ def _interp_core(eng, sets: dict, chunk_years: int, ktab, nnghs_src) -> dict:
 
 def step_interp(cfg: TopoConfig, chunk_years: int = 0, ctx=None,
                 nnghs_path: str | None = None, use_nnghs: bool = True, *,
-                device) -> dict:
+                device=None) -> dict:
     """chunk_years > 0 switches to the config-#5 chunked production run
     (mandatory for multi-decade spans: the device daily buffer scales with
-    the chunk length, not the full 1948-2016 span). ``ctx`` is a
-    MultihostContext (one process: several are not ported yet).
+    the chunk length, not the full 1948-2016 span). ``ctx`` is this
+    process's MultihostContext (``dist.multihost.init_multihost``): in a job
+    over several processes each interpolates its strided tile set into its
+    own manifest and, in direct mode, its own mosaic shard. ``device``: one
+    device to step on; None steps over this process's mesh
+    (``dist.multihost.local_mesh``, ``config.mesh.n_devices`` of its
+    devices).
 
     ``nnghs_path``/``use_nnghs``: the optim-nnghs artifact (see
     step_optim_nnghs). When present (explicit path, or data_dir/nnghs.h5
@@ -618,9 +623,10 @@ def step_interp(cfg: TopoConfig, chunk_years: int = 0, ctx=None,
             nnghs_src = str(npth)
         elif nnghs_path:
             raise FileNotFoundError(f"--nnghs artifact not found: {npth}")
-    # direct-to-mosaic (cfg.mosaic_direct, single-process packed runs): the
-    # engine writes finished tiles straight into these final mosaic files
-    # and the mosaic stage reduces to a finalization check
+    # direct-to-mosaic (cfg.mosaic_direct, packed runs): the engine writes
+    # finished tiles straight into these final mosaic files (one shard a
+    # process in a job over several) and the mosaic stage reduces to a
+    # finalization check (a virtual master over the shards)
     eng = TileEngine(
         cfg, rasters, days, p["tiles"], device=device, ctx=ctx,
         mosaic_paths={v: p[f"mosaic_{v}"] for v in (C.TMIN, C.TMAX)},
@@ -1665,6 +1671,72 @@ def reconcile_cross_variable(p_tmin, p_tmax, time_chunk: int = 64) -> dict:
 # ---------------------------------------------------------- stage: mosaic
 
 
+def _assemble_direct_shards(cfg, p, rasters, tiling, days) -> dict:
+    """Direct-to-mosaic finalization of a job over several processes: every
+    process wrote its strided tile set straight into its own full-grid shard
+    (mosaic_<var>_pNNN.h5); publish ONE master mosaic per variable as an
+    HDF5 virtual dataset over the shards (metadata only, no tile copy; the
+    analogue of the single-process direct branch of ``step_mosaic``).
+    Cross-variable reconcile normally happened on the device per tile; the
+    host fallback runs per shard PAIR (both variables' shard k cover the
+    same tiles: ownership does not depend on the variable) before assembly."""
+    import h5py
+
+    from topotpu_torch.io.ncdf import build_virtual_mosaic
+
+    shard_lists = {}
+    for var in (C.TMIN, C.TMAX):
+        found = sorted(
+            p["root"].glob(f"mosaic_{var}_p[0-9][0-9][0-9].h5")
+        )
+        if not found:
+            raise RuntimeError(
+                f"direct-mode shard claims exist but no mosaic_{var}_p*.h5 "
+                "shards found — rerun the interp stage"
+            )
+        with h5py.File(found[0], "r") as f:
+            n_proc = int(f.attrs.get("process_count", 1))
+        if len(found) != n_proc:
+            raise RuntimeError(
+                f"direct-mode mosaic incomplete: {len(found)} of {n_proc} "
+                f"{var} shards present — rerun the interp stage on the "
+                "missing hosts (their manifests resume)"
+            )
+        shard_lists[var] = found
+
+    # host reconcile fallback, shard pair by shard pair
+    crossvar = None
+    for pn, px in zip(shard_lists[C.TMIN], shard_lists[C.TMAX]):
+        with h5py.File(pn, "r") as a, h5py.File(px, "r") as b:
+            done = bool(a.attrs.get("reconciled", False)) and bool(
+                b.attrs.get("reconciled", False)
+            )
+        if done:
+            continue
+        r = reconcile_cross_variable(pn, px)
+        if crossvar is None:
+            crossvar = {"violations": 0, "rate": 0.0, "worst_crossing_C": 0.0}
+        crossvar["violations"] += r["violations"]
+        crossvar["worst_crossing_C"] = max(
+            crossvar["worst_crossing_C"], r["worst_crossing_C"]
+        )
+        for sp in (pn, px):
+            with h5py.File(sp, "r+") as f:
+                f.attrs["reconciled"] = True
+
+    land = list(tiling.land_tiles(rasters.landmask))
+    out: dict = {}
+    for var in (C.TMIN, C.TMAX):
+        res = build_virtual_mosaic(
+            p[f"mosaic_{var}"], var, shard_lists[var],
+            rasters.grid, days.date64, land,
+        )
+        out[var] = res["n_tiles"]
+    if crossvar is not None:
+        out["crossvar"] = crossvar
+    return out
+
+
 def _latest_layout(tiles_dir):
     """'direct' / 'shard' / 'tiles' / None — where the most recent interp
     run put its data, decided from the engine manifests (the source of
@@ -1742,14 +1814,7 @@ def step_mosaic(cfg: TopoConfig) -> dict:
 
     layout = _latest_layout(p["tiles"])
     if cfg.mosaic_direct and layout == "shard":
-        # the JAX package publishes an HDF5 virtual dataset over the
-        # processes' shards (io/ncdf.py::build_virtual_mosaic)
-        raise NotImplementedError(
-            "mosaic: the last interp run wrote per-process mosaic shards "
-            "(mosaic_<var>_pNNN.h5); assembling them needs several processes "
-            "and build_virtual_mosaic, not ported to topotpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 6)"
-        )
+        return _assemble_direct_shards(cfg, p, rasters, tiling, days)
 
     if direct and cfg.mosaic_direct and layout != "tiles":
         if set(direct) != {C.TMIN, C.TMAX} or not all(

@@ -1,5 +1,5 @@
 """Production tile engine: host orchestration around the device step (the
-port of ``topotpu.dist.engine`` to one GPU).
+port of ``topotpu.dist.engine``).
 
 Parity target: the reference's gridded-production program
 ``bin/mpi_interp_tair.py`` (SURVEY.md §3.1) — rank 0 queueing tiles, workers
@@ -7,15 +7,23 @@ interpolating cells, a dedicated writer rank serializing netCDF output —
 plus its idempotent-restart behavior (SURVEY.md §5: a crashed run is resumed
 by re-queuing tiles whose output is missing).
 
-On one GPU the same machinery is:
+In one process the same machinery is:
 
-* the worker pool is ONE tile step on the card (``interp.point``'s
-  ``interp_tile_pair_flat`` and its single-variable forms); tiles stream
+* the worker pool is ONE tile step over the process's device mesh
+  (``dist.mesh``: ``sharded_interp_tile_pair_flat`` and its single-variable
+  forms, each shard ``interp.point``'s step on its device); tiles stream
   through it, and only the main thread launches work;
 * three stages, one thread each. The main thread prepares a tile's host
-  inputs, stages them through a pinned host buffer (one non-blocking copy),
-  launches the step, and starts the copy of its product into a pinned host
-  buffer taken from a bounded pool, with a CUDA event behind it. A fetch
+  inputs, stages them through a pinned host buffer (one non-blocking copy to
+  the mesh's first device; each shard takes its cells from there, as views
+  where its device is that one and as device-to-device copies elsewhere),
+  launches the step on every shard, and starts the copy of its product
+  (gathered on the first device, the cells in order) into a pinned host
+  buffer taken from a bounded pool, with a CUDA event behind it. (Gathered
+  and copied once, a two-shard 128 x 128 pair product of 24.3 MiB took
+  0.56-0.62 ms; a copy and an event a shard and the columns put in order on
+  the host took 4.3-5.4 ms: NVIDIA H100 80GB HBM3, 700 W, ``chip_smoke.py``
+  ``[mesh]``.) A fetch
   thread waits on that event (the wait releases the GIL) and hands numpy
   views of the buffer on. A writer thread writes the tile (HDF5 tile files,
   or straight into the final mosaic), records the manifest and returns the
@@ -26,17 +34,23 @@ On one GPU the same machinery is:
 * restart = a JSON manifest + atomic tile files: every completed tile is
   recorded after its write; on resume, completed tiles are skipped.
 
-The engine runs on the device it is given, or on the first CUDA device
-(``core.device.cuda_device`` raises where there is none). On CPU tensors, as
-the tests ask for, the step takes its kernels' plain versions and the fetch
-is a ``.numpy()`` view of the product. Several GPUs (the JAX engine's device
-mesh and its per-process mosaic shards) are not ported yet.
+The mesh is the one the caller gives; else a mesh of the one ``device`` it
+names; else this process's share of the visible CUDA devices
+(``dist.multihost.local_mesh``; ``core.device`` raises where there is none),
+``config.mesh.n_devices`` of them or all, trimmed until their number divides
+the tile's cells. On CPU tensors, as the tests ask for, the step takes its
+kernels' plain versions and the fetch is a ``.numpy()`` view of the product.
+
+Several processes: each owns the tiles with ``tile_id % process_count ==
+process_index`` (``ctx``), keeps its own manifest, and in direct mode writes
+its own full-grid mosaic shard (``mosaic_<var>_pNNN.h5``), stamped with its
+tile count and identity when finalized; the mosaic stage publishes one
+virtual master over the shards (``io.ncdf.build_virtual_mosaic``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import json
 import pathlib
 import threading
@@ -49,9 +63,17 @@ import torch
 from topotpu_torch.core import constants as _C
 from topotpu_torch.core.config import TopoConfig
 from topotpu_torch.core.dates import DaysMetadata, get_days_metadata
-from topotpu_torch.core.device import cuda_device
 from topotpu_torch.core.grid import Tiling, TileSpec
-from topotpu_torch.dist.multihost import MultihostContext
+from topotpu_torch.dist.mesh import (
+    CellMesh,
+    make_mesh,
+    shard_pair_inputs,
+    shard_tile_inputs,
+    sharded_interp_tile,
+    sharded_interp_tile_flat,
+    sharded_interp_tile_pair_flat,
+)
+from topotpu_torch.dist.multihost import MultihostContext, local_mesh
 from topotpu_torch.interp.convert import fixed_scales_from_config
 from topotpu_torch.interp.point import (
     FlatTileResult,
@@ -61,9 +83,6 @@ from topotpu_torch.interp.point import (
     VarFields,
     check_slot_of_day,
     group_days_by_month,
-    interp_tile,
-    interp_tile_flat,
-    interp_tile_pair_flat,
     month_layout,
     ungroup_days,
 )
@@ -238,7 +257,8 @@ def _release(fut) -> None:
 
 
 class TileEngine:
-    """Tile production on one device (see the module docstring)."""
+    """Tile production over one process's device mesh (see the module
+    docstring)."""
 
     # the direct-mode mosaic writer class: None is io.ncdf.MosaicWriter,
     # resolved in _open_mosaic; a subclass may name another class with its
@@ -257,6 +277,7 @@ class TileEngine:
         ctx: MultihostContext | None = None,
         mosaic_paths: dict[str, pathlib.Path] | None = None,
         k_table: dict | None = None,
+        mesh: CellMesh | None = None,
     ):
         self.config = config
         self.rasters = rasters
@@ -266,8 +287,20 @@ class TileEngine:
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.tiling = Tiling(rasters.grid, config.tile_rows, config.tile_cols)
         self.margin_km = margin_km
-        # the card unless the caller names a device; no card raises
-        self.device = cuda_device() if device is None else torch.device(device)
+        if mesh is None and device is not None:
+            mesh = make_mesh(devices=[device])
+        if mesh is None:
+            # this process's devices only: in a job over several processes
+            # each runs its own step over its own devices
+            local = local_mesh(config.mesh.n_devices)
+            n_dev = len(local.devices)
+            # the mesh's size must divide the tile's cells
+            while (config.tile_rows * config.tile_cols) % n_dev:
+                n_dev -= 1
+            mesh = make_mesh(n_dev, devices=local.devices)
+        self.mesh = mesh
+        # inputs are staged to the first device; products gather there
+        self.device = mesh.devices[0]
         # station-pool cap accounting (see prepare): total in-tile stations
         # dropped by max_tile_stations across the run — nonzero means silent
         # accuracy loss at tile edges; surfaced once as a warning and
@@ -317,24 +350,25 @@ class TileEngine:
 
     # ------------------------------------------------------- step functions
     def _step_fn(self, params, shared: bool):
-        """Single-variable tile step: ``fn(inputs, slot[, fixed_scales=])``
-        -> FlatTileResult in packed mode, ``fn(inputs)`` -> TileResult
-        otherwise."""
+        """Single-variable tile step over the mesh: ``fn(shards, slot[,
+        fixed_scales])`` -> FlatTileResult in packed mode (direct mode: on
+        the run-global lattice), ``fn(shards)`` -> TileResult otherwise."""
         if self._flat:
-            return functools.partial(interp_tile_flat, params=params, shared_validity=shared)
-        return functools.partial(interp_tile, params=params, shared_validity=shared)
+            return sharded_interp_tile_flat(self.mesh, params, shared, fixed=self._direct)
+        return sharded_interp_tile(self.mesh, params, shared)
 
     def _get_pair_fn(self, shared: bool, reconcile: bool = False,
                      params=None):
-        """Two-variable step ``fn(pair, slot[, fixed_scales=])`` ->
-        FlatTileResult, one per (validity mode, reconcile, mode, params)."""
+        """Two-variable step over the mesh ``fn(pair_shards, slot[,
+        fixed_scales])`` -> FlatTileResult, one per (validity mode,
+        reconcile, mode, params)."""
         if self._pair_fns is None:
             self._pair_fns = {}
         key = (shared, reconcile, self._direct, params)
         if key not in self._pair_fns:
-            self._pair_fns[key] = functools.partial(
-                interp_tile_pair_flat, params=params or self.config.interp,
-                shared_validity=shared, reconcile=reconcile,
+            self._pair_fns[key] = sharded_interp_tile_pair_flat(
+                self.mesh, params or self.config.interp, shared,
+                fixed=self._direct, reconcile=reconcile,
             )
         return self._pair_fns[key]
 
@@ -521,14 +555,15 @@ class TileEngine:
         host, so the transfer overlaps the next tile's prepare. ``fn``
         overrides the engine-default step (per-tile optimized k)."""
         fn = fn or self._fn
+        shards = shard_tile_inputs(self.mesh, task.inputs)
         if self._flat:
             slot = self._dev_slot()
             if self._direct:
-                out = fn(task.inputs, slot, fixed_scales=self._dev_scales())
+                out = fn(shards, slot, self._dev_scales())
             else:
-                out = fn(task.inputs, slot)
+                out = fn(shards, slot)
         else:
-            out = fn(task.inputs)
+            out = fn(shards)
         return self._start_fetch(out)
 
     def _get_var_fn(self, shared: bool, params):
@@ -1116,11 +1151,11 @@ class TileEngine:
             self.rasters,
             sub_days,
             self.out_dir / f"chunk_{span[0]}_{span[-1]}",
-            device=self.device,
             margin_km=self.margin_km,
             ctx=self.ctx,
             mosaic_paths=self.mosaic_paths,
             k_table=self.k_table,
+            mesh=self.mesh,
         )
         if self._direct:
             sub._mosaic = self._mosaic
@@ -1256,10 +1291,11 @@ class TileEngine:
             fn_spec = fn if p_spec is None else self._get_pair_fn(
                 shared, reconcile=reconcile, params=p_spec
             )
+            shards = shard_pair_inputs(self.mesh, pair)
             if fixed is not None:
-                out = fn_spec(pair, slot, fixed_scales=fixed)
+                out = fn_spec(shards, slot, fixed)
             else:
-                out = fn_spec(pair, slot)
+                out = fn_spec(shards, slot)
             return task.spec, self._start_fetch(out)
 
         try:

@@ -114,11 +114,21 @@ class PairTileInputs(NamedTuple):
     b: VarFields
 
 
-def _quantize_plane(x, valid):
-    """int16-quantize x over its valid entries with one scale/offset."""
+def _plane_range(x, valid):
+    """(min, max) of x over its valid entries, as 0-d tensors; (3e38, -3e38)
+    where no entry is valid."""
     big = 3.0e38
     mn = torch.amin(torch.where(valid, x, torch.full_like(x, big)))
     mx = torch.amax(torch.where(valid, x, torch.full_like(x, -big)))
+    return mn, mx
+
+
+def _quantize_plane(x, valid, value_range=None):
+    """int16-quantize x over its valid entries with one scale/offset, set by
+    ``value_range`` = (min, max) where given (the range over every shard of
+    a mesh: ``dist.mesh`` reduces the shards' ``_plane_range``, as JAX's
+    ``pmin`` / ``pmax`` do), else by x's own range."""
+    mn, mx = _plane_range(x, valid) if value_range is None else value_range
     has_any = mx >= mn
     mn = torch.where(has_any, mn, torch.zeros_like(mn))
     mx = torch.where(has_any, mx, torch.ones_like(mx))
@@ -378,14 +388,28 @@ def interp_tile_pair(
     return res[0], res[1]
 
 
-def _flatten_result(res: TileResult, slot_of_day):
-    """Quantize (one tile-wide scale/offset a plane) + calendar-reorder one
-    TileResult into flat-buffer planes and their six scales."""
+def _flat_planes(res: TileResult) -> tuple:
+    """The daily, normal and se planes of a TileResult that ``_flatten_result``
+    quantizes, each with its validity."""
+    return ((res.daily, res.ok[:, :, None]), (res.normal, res.ok), (res.se, res.ok))
+
+
+def flat_ranges(res: TileResult) -> list:
+    """(min, max) over the ok entries of each of ``_flat_planes(res)``: what a
+    mesh reduces over its shards before ``_flatten_result``."""
+    return [_plane_range(x, valid) for x, valid in _flat_planes(res)]
+
+
+def _flatten_result(res: TileResult, slot_of_day, ranges=None):
+    """Quantize (one tile-wide scale/offset a plane, or the three (min, max)
+    ``ranges`` of a mesh) + calendar-reorder one TileResult into flat-buffer
+    planes and their six scales."""
     C = res.normal.shape[1]
     dpm = res.daily.shape[-1]
-    dq, d_scale, d_off = _quantize_plane(res.daily, res.ok[:, :, None])
-    nq, n_scale, n_off = _quantize_plane(res.normal, res.ok)
-    sq, s_scale, s_off = _quantize_plane(res.se, res.ok)
+    (dq, d_scale, d_off), (nq, n_scale, n_off), (sq, s_scale, s_off) = (
+        _quantize_plane(x, valid, None if ranges is None else ranges[i])
+        for i, (x, valid) in enumerate(_flat_planes(res))
+    )
     scales = torch.stack([d_scale, d_off, n_scale, n_off, s_scale, s_off])
     if isinstance(slot_of_day, torch.Tensor):
         slot = slot_of_day.to(dq.device, torch.long)
@@ -504,6 +528,14 @@ def interp_tile_pair_flat(
     if fixed_scales is not None:
         return _flat_fixed(pair.geom, (pair.b,), slot_of_day, params, shared_validity,
                            fixed_scales, reconcile)
+    return pair_flatten(reconciled_pair(pair, params, shared_validity, reconcile),
+                        slot_of_day)
+
+
+def reconciled_pair(pair: PairTileInputs, params: InterpParams, shared_validity: bool,
+                    reconcile: bool) -> tuple[TileResult, TileResult]:
+    """The float half of the dynamic-lattice ``interp_tile_pair_flat``: both
+    variables' TileResults, with the reconcile's midpoints where asked."""
     res_a, res_b = interp_tile_pair(pair, params, shared_validity)
     if reconcile:
         both = (res_a.ok & res_b.ok)[:, :, None]
@@ -511,10 +543,20 @@ def interp_tile_pair_flat(
         mid = 0.5 * (res_a.daily + res_b.daily)
         res_a = res_a._replace(daily=torch.where(bad, mid, res_a.daily))
         res_b = res_b._replace(daily=torch.where(bad, mid, res_b.daily))
-    buf_a, sc_a = _flatten_result(res_a, slot_of_day)
-    buf_b, sc_b = _flatten_result(res_b, slot_of_day)
+    return res_a, res_b
+
+
+def pair_flatten(results, slot_of_day, ranges=None) -> FlatTileResult:
+    """Both variables' TileResults as one flat buffer, var A's block first;
+    ``ranges``: six (min, max), three a variable (``flat_ranges``), or None
+    for each plane's own."""
+    parts = [
+        _flatten_result(res, slot_of_day, None if ranges is None else ranges[3 * v : 3 * v + 3])
+        for v, res in enumerate(results)
+    ]
     return FlatTileResult(
-        buf=torch.cat([buf_a, buf_b], dim=0), scales=torch.cat([sc_a, sc_b])
+        buf=torch.cat([buf for buf, _ in parts], dim=0),
+        scales=torch.cat([sc for _, sc in parts]),
     )
 
 

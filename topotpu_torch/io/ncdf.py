@@ -15,9 +15,12 @@ Tile writes are atomic: <name>.tmp then os.replace, so a crashed run never
 leaves a half-written tile and the manifest can trust file presence
 (SURVEY.md §5 idempotent-restart contract).
 
+A run over several processes writes one full-grid mosaic shard a process;
+``build_virtual_mosaic`` publishes them as one master file whose datasets
+map each tile to its shard (an HDF5 virtual dataset, no data copied).
+
 ``h5py`` is imported inside the functions that open files, so that importing
-the module needs none. The JAX package's ``build_virtual_mosaic`` (the
-assembly of several processes' mosaic shards) comes with several GPUs.
+the module needs none.
 """
 
 from __future__ import annotations
@@ -365,6 +368,111 @@ class MosaicWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def build_virtual_mosaic(
+    dst: str | pathlib.Path,
+    var: str,
+    shard_paths: list,          # per-process shard files, index = process id
+    grid: GridSpec,
+    dates: np.ndarray,
+    land_tiles: list,           # TileSpecs of every land tile in the grid
+) -> dict:
+    """Assemble the direct-mode shards of a run over several processes into
+    ONE published mosaic as an HDF5 virtual dataset (VDS): metadata only, no
+    tile data is copied.
+
+    Each shard holds the full-grid-shaped datasets but only its owned tiles
+    (tile_id % P == process_index) were ever written; the master maps each
+    land tile's region to its owning shard. HDF5 resolves the relative
+    source file names against the master's directory, so the whole data_dir
+    stays relocatable. Readers are unchanged: a VDS reads like any dataset
+    (unmapped ocean regions return the declared fillvalue). A virtual
+    dataset cannot carry filters itself, but every read resolves to the
+    source shards' chunks, whose fletcher32 checksums ARE verified: bit rot
+    in a shard raises through the master too.
+
+    All shards must be finalized (``complete``); raises otherwise. Returns
+    {"n_tiles": total, "reconciled": all-shards-reconciled}.
+    """
+    import h5py
+
+    dst = pathlib.Path(dst)
+    P = len(shard_paths)
+    n_tiles = 0
+    reconciled = True
+    meta = []
+    for i, sp in enumerate(shard_paths):
+        with h5py.File(sp, "r") as f:
+            if not f.attrs.get("complete", False):
+                raise RuntimeError(
+                    f"direct-mode shard {sp.name} is not finalized — rerun "
+                    "the interp stage on that host (its manifest resumes)"
+                )
+            if int(f.attrs.get("process_index", 0)) != i or int(
+                f.attrs.get("process_count", 1)
+            ) != P:
+                raise RuntimeError(
+                    f"shard {sp.name}: identity attrs "
+                    f"(p{f.attrs.get('process_index')}/"
+                    f"{f.attrs.get('process_count')}) do not match its slot "
+                    f"(p{i}/{P}) — mixed runs in one data dir?"
+                )
+            n_tiles += int(f.attrs.get("n_tiles", 0))
+            reconciled &= bool(f.attrs.get("reconciled", False))
+            d = f[var]
+            meta.append({
+                "shape": d.shape,
+                "dtype": d.dtype,
+                "attrs": {k: d.attrs[k] for k in
+                          ("scale_factor", "add_offset", "_FillValue",
+                           "units", "long_name") if k in d.attrs},
+            })
+            if meta[0]["shape"] != meta[-1]["shape"] or (
+                meta[0]["attrs"].get("scale_factor")
+                != meta[-1]["attrs"].get("scale_factor")
+            ):
+                raise RuntimeError(
+                    f"shard {sp.name}: shape/pack grid differs from shard 0 "
+                    "— shards are not from one run"
+                )
+    shape = meta[0]["shape"]
+    R, Cc = grid.nrows, grid.ncols
+
+    tmp = dst.with_suffix(dst.suffix + ".tmp")
+    with h5py.File(tmp, "w") as f:
+        _write_coords(f, grid, dates)
+        specs = [
+            (var, shape, meta[0]["dtype"],
+             FILL_I16 if meta[0]["dtype"] == np.int16 else np.nan,
+             ("time", "lat", "lon")),
+            ("normal", (12, R, Cc), np.float32, np.nan, ("mth", "lat", "lon")),
+            ("se", (12, R, Cc), np.float32, np.nan, ("mth", "lat", "lon")),
+        ]
+        for name, shp, dt, fill, dims in specs:
+            layout = h5py.VirtualLayout(shape=shp, dtype=dt)
+            sources = [
+                h5py.VirtualSource(sp.name, name, shape=shp)
+                for sp in shard_paths
+            ]
+            for ts in land_tiles:
+                sl = (slice(None),
+                      slice(ts.row0, ts.row0 + ts.nrows),
+                      slice(ts.col0, ts.col0 + ts.ncols))
+                layout[sl] = sources[ts.tile_id % P][sl]
+            v = f.create_virtual_dataset(name, layout, fillvalue=fill)
+            src_attrs = meta[0]["attrs"] if name == var else {}
+            for k, val in src_attrs.items():
+                v.attrs[k] = val
+            _attach_dims(f, v, dims)
+        f.attrs["layout"] = "direct"
+        f.attrs["virtual"] = True
+        f.attrs["n_tiles"] = n_tiles
+        f.attrs["n_shards"] = P
+        f.attrs["complete"] = True
+        f.attrs["reconciled"] = bool(reconciled)
+    os.replace(tmp, dst)
+    return {"n_tiles": n_tiles, "reconciled": bool(reconciled)}
 
 
 def decode_array(data: np.ndarray, dset) -> np.ndarray:

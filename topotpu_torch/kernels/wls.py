@@ -47,10 +47,15 @@ def batched_wls(
 def batched_gwr_gain(
     X: torch.Tensor, w: torch.Tensor, x0: torch.Tensor, ridge: float = 1e-6
 ) -> torch.Tensor:
-    """Prediction gain row g (B, k) = w * (X (X^T W X)^-1 x0): pred(y) = g . y."""
+    """Prediction gain row g (B, k) = w * (X (X^T W X)^-1 x0): pred(y) = g . y.
+
+    The last product is elementwise and a sum over p, not a batched matrix
+    product: on the card cuBLAS picks the batched product's kernel by the
+    batch size, which parted a tile's gain rows from those of its halves by
+    1e-6 (a cell-sharded step must equal the whole tile's bit for bit)."""
     A = _normal_eq(X, w, ridge)
     v = _chol_solve(A, x0[..., None])[..., 0]
-    return w * torch.einsum("bkp,bp->bk", X, v)
+    return w * torch.sum(X * v[..., None, :], dim=-1)
 
 
 def center_design(
