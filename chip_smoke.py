@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port, ``topotpu_torch``, once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py kernels    # phases 1-3 only (kernel times of one source tree), then
-                                     # exit 0 without the last two lines
+    python3 chip_smoke.py kernels    # phases 1-3 only (kernel times of one source tree, the
+                                     # [normals] lines included), then exit 0 without the
+                                     # last two lines
     python3 chip_smoke.py scatter    # the same with only the daily contraction's lines
     python3 chip_smoke.py ok_solve   # only the OK solve: its build and its [ok_solve] lines
 
@@ -49,7 +50,18 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    to the factorisation and solves (``torch.linalg.cholesky_ex`` +
    ``torch.cholesky_solve`` on the plain version's matrices, which the port
    never calls). ``python3 chip_smoke.py ok_solve`` builds only
-   ``ok_solve.cu`` and prints only these lines.
+   ``ok_solve.cu`` and prints only these lines. Between the ``[kernels]``
+   and the ``[ok_solve]`` lines, ``[normals]``: ``interp/normals.py``'s
+   ``krig_normals_and_gains`` and ``krig_normals`` on the same 65,536 cells
+   (the 64 nearest stations' rows gathered once; k = 32 and 64 with
+   q = 3 trend covariates (elev, tdi, July's LST) and qa = 2 (elev, tdi),
+   k = 32 with q = 7 (elev, tdi, the LST of months 0-4) and qa = 1, and
+   the gaussian and uniform weight kernels at k = 32): each call one launch
+   of the gathered entry of ``krig_normals.cu`` and none of the indexed
+   one, then that entry against its plain version by ``_compare_krig``'s
+   rule, its time, the plain version's, its bound and the July normals'
+   MAE against the world's truth (under 0.3 C where July's LST is a
+   covariate).
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. The run must launch
@@ -326,9 +338,13 @@ def phase_build(names=KERNELS):
 
     from topotpu_torch.kernels import _build
 
+    def timed(name):
+        t = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
-        paths = list(pool.map(_build.build, names))
+        paths, walls = zip(*pool.map(timed, names))
     reports = []
     for path in paths:
         log_text = path.with_name(path.name + ".log").read_text()
@@ -339,8 +355,10 @@ def phase_build(names=KERNELS):
                 reports.append(f"{entry[-1][0]}<{args}>")
             elif "registers" in ln or "spill" in ln:
                 reports.append(ln.strip())
+    each = ", ".join(f"{n} {w:.3f} s" for n, w in zip(names, walls))
     return [f"[build] nvcc {_build.find_nvcc()} built {', '.join(names)} in "
-            f"{time.perf_counter() - t0:.3f} s"] + [f"[build] ptxas: {ln}" for ln in reports]
+            f"{time.perf_counter() - t0:.3f} s ({each})"] + [
+                f"[build] ptxas: {ln}" for ln in reports]
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -378,14 +396,21 @@ def solve_flops(k, xyz=True):
     return 2 * k * k + k**3 / 3 + 4 * k * k + 10 * k + (6 * k * k if xyz else 0)
 
 
-def krig_flops(k, n_systems, n_nbr=1):
+def krig_flops(k, n_systems, n_nbr=1, q=3, qa=3, q_fixed=2):
     """Operations of the normals chain for one cell: per neighbourhood the
-    weights, pair distances, two fixed design columns, the gain rows (a
-    4-column design: 10 + 4 products of 3 k, and the small solves); per
-    system one design column, the WLS normal equations and right-hand side,
-    the residuals, the variogram weights and the kriging solve."""
-    per_nbr = 10 * k + 6 * k * k + 2 * 8 * k + (3 * 8 * k + 14 * 3 * k + 200)
-    per_system = 8 * k + 14 * 3 * k + 200 + 10 * k + 6 * k + solve_flops(k, xyz=False)
+    weights, pair distances, the ``q_fixed`` design columns no system
+    changes, the gain rows (qa + 1 columns: (qa + 1) (qa + 2) / 2 + qa + 1
+    products of 3 k, and the small solves); per system its q - q_fixed
+    design columns, the WLS normal equations and right-hand side (the same
+    count for q + 1 columns), the residuals, the variogram weights and the
+    kriging solve. The defaults are the indexed entry's design (trend elev,
+    tdi, lst_m; anomalies elev, x, y); the gathered entry's one system is
+    ``krig_flops(k, 1, 1, q, qa, q_fixed=q)``."""
+    products = lambda p: p * (p + 1) // 2 + p  # noqa: E731
+    per_nbr = (10 * k + 6 * k * k + q_fixed * 8 * k
+               + (qa * 8 * k + products(qa + 1) * 3 * k + 200))
+    per_system = ((q - q_fixed) * 8 * k + products(q + 1) * 3 * k + 200 + 10 * k + 6 * k
+                  + solve_flops(k, xyz=False))
     return n_nbr * per_nbr + n_systems * per_system
 
 
@@ -404,7 +429,7 @@ def _krig_planes(rows64, k, dev):
     return [torch.from_numpy(a).to(dev) for a in (xyz3k, dist_t, mask_t)]
 
 
-def _compare_krig(got, want, want64, k, ill_conditioned=False):
+def _compare_krig(got, want, want64, k, ill_conditioned=False, collinear=False):
     """Kernel vs its float32 plain version, with a float64 plain run as the
     arbiter. At 65,536 cells a few cells have a nearly collinear trend
     design (lst follows elevation) whose float32 rounding is amplified by
@@ -439,7 +464,14 @@ def _compare_krig(got, want, want64, k, ill_conditioned=False):
     inside). There the same statistics decide for the normal, the trend and
     the gains, with 95 % of the normals and trends and 99 % of the gains
     inside the parity tolerance, the kernel's worst normal within 1 C and
-    its worst gain within 1e-2."""
+    its worst gain within 1e-2.
+
+    With ``collinear`` (a trend design whose columns share a term: the LST
+    of several months, each a constant minus 0.0055 x elevation plus a
+    field of its own) float64 decides for the normal and the trend at any k
+    as the ``ill_conditioned`` rule does below k = 24: 99 % of values inside
+    the parity tolerance, the statistics against float64, the worst within
+    0.1 C."""
     import torch
 
     got, want, want64 = (t.double() for t in (got, want, want64))  # compared on the card
@@ -463,8 +495,9 @@ def _compare_krig(got, want, want64, k, ill_conditioned=False):
         dmax = float(d.max())
         small = ill_conditioned and k < 16
         trendish = what in ("normal", "trend")
-        by_stats = ill_conditioned and (trendish or (small and what == "gains"))
-        loose = by_stats and k < 24
+        by_stats = (ill_conditioned and (trendish or (small and what == "gains"))
+                    or collinear and trendish)
+        loose = by_stats and (k < 24 or collinear)
         # one float32 step of a 2,000 km range is 1.2e-4, above the cap
         capped = d[~within] if what == "variogram" else d
         over_cap = not loose and capped.numel() > 0 and float(capped.max()) > cap
@@ -616,6 +649,112 @@ def phase_kernels(world, days, rows64, dev):
     del ti
     report.update(scatter_lines(rows64, dev))
     return report
+
+
+NM_TREND3 = ("elev", "tdi", "lst6")  # July's LST: the month whose normals are kriged
+NM_LST5 = ("elev", "tdi", "lst0", "lst1", "lst2", "lst3", "lst4")  # five months share elevation
+NM_CASES = (  # k, trend covariates, anomaly covariates, weight kernel
+    (32, NM_TREND3, ("elev", "tdi"), "bisquare"),
+    (64, NM_TREND3, ("elev", "tdi"), "bisquare"),
+    (32, NM_LST5, ("elev",), "bisquare"),
+    (32, NM_TREND3, ("elev", "tdi"), "gaussian"),
+    (32, NM_TREND3, ("elev", "tdi"), "uniform"),
+)
+
+
+def phase_normals(world, days, dev):
+    """``[normals]``: ``interp/normals.py``'s ``krig_normals_and_gains`` and
+    ``krig_normals`` (callers' own covariates on gathered neighbourhoods,
+    through the gathered entry of ``csrc/krig_normals.cu``) on the tile
+    step's 65,536 cells, July's normals of variable 0, with ``_krig_planes``'
+    holes. The 64 nearest stations' table rows are gathered once; each case
+    takes its k-prefix and its covariates (``NM_CASES``). The trend on five
+    LST months is compared with ``collinear``: its float32 normal equations
+    part any two implementations by up to ~1e-2 C. Per case: both
+    functions with the launch counters from 0 (one gathered launch each, no
+    indexed one, the same heads), then the wrapper against its plain version
+    by ``_compare_krig``'s rule with a float64 plain run as arbiter, the
+    kernel's and the plain version's times, the bound and the July MAE
+    against the world's truth. Returns the kernels-line report and the
+    main-path launches."""
+    import torch
+
+    from topotpu_torch.interp import normals
+    from topotpu_torch.interp.point import VarFields, tile_neighborhoods, tile_tables
+    from topotpu_torch.io.synthetic import tile_inputs_from_world
+    from topotpu_torch.kernels import krig_normals as kn
+
+    t_all = time.perf_counter()
+    C, m = N_SIDE * N_SIDE, 6
+    rows, cols = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
+    ti, _ = tile_inputs_from_world(world, days.month_idx, rows, cols, dev)
+    table, cell = tile_tables(ti, (VarFields(ti.stn_norm, ti.stn_vario, ti.stn_anoms),))
+    nbr = tile_neighborhoods(ti, 64, True)[0]
+    G = table[nbr.idx.long()]  # (C, 64, F): every station column, gathered once
+    tcol = dict(elev=0, tdi=1, x=2, y=3, **{f"lst{i}": 7 + i for i in range(12)})
+    ccol = dict(elev=0, tdi=1, x=2, y=3, **{f"lst{i}": 4 + i for i in range(12)})
+    lon, lat = world.grid.cell_lonlat(rows, cols)
+    truth = torch.from_numpy(world.true_normal(
+        lon, lat, world.elev[rows, cols], world.tdi[rows, cols], world.lst[m, rows, cols],
+        m + 1)).to(dev)
+    base = kn.TABLE_BASE
+    report, launched = {}, 0
+    for k, cov, acov, weight_kernel in NM_CASES:
+        t = time.perf_counter()
+        Gk = G[:, :k]
+        mask = nbr.mask[:, :k].clone()
+        mask[::7, -1] = False
+        mask[3, 2:] = False
+        operands = tuple(x.contiguous() for x in (
+            nbr.dist[:, :k] * mask, mask, Gk[..., 4:7], Gk[..., [tcol[c] for c in cov]],
+            cell[:, [ccol[c] for c in cov]], Gk[..., base + m],
+            Gk[..., base + 12 + 3 * m: base + 15 + 3 * m], Gk[..., [tcol[c] for c in acov]],
+            cell[:, [ccol[c] for c in acov]]))
+        kw = dict(weight_kernel=weight_kernel)
+
+        kn.krig_normals_gathered.launches = kn.krig_normals_indexed.launches = 0
+        res, gains = normals.krig_normals_and_gains(*operands, **kw)
+        alone = normals.krig_normals(*operands[:7], **kw)
+        torch.cuda.synchronize()
+        n = (kn.krig_normals_gathered.launches, kn.krig_normals_indexed.launches)
+        if n != (2, 0):
+            raise RuntimeError(f"[normals] launched gathered / indexed {n}, expected (2, 0)")
+        launched += n[0]
+        same = lambda a, b: torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))  # noqa: E731
+        if not all(same(getattr(alone, f), getattr(res, f)) for f in res._fields):
+            raise AssertionError("[normals] krig_normals and krig_normals_and_gains differ")
+
+        head, g = kn.krig_normals_gathered(*operands, **kw)
+        want = kn.krig_normals_gathered_ref(*operands, **kw)
+        want64 = kn.krig_normals_gathered_ref(
+            *(x.double() if x.is_floating_point() else x for x in operands), **kw)
+        if not (same(head[:, 0], res.normal) and same(g, gains)):
+            raise AssertionError("[normals] the API's result is not the kernel's")
+        rows_of = lambda h, gg: torch.cat([h.T, gg.T])  # noqa: E731
+        err, n_not_ok, e64_kern, e64_plain = _compare_krig(
+            rows_of(head, g), rows_of(*want), rows_of(*want64), k, collinear=cov == NM_LST5)
+        t_cmp = time.perf_counter() - t
+        ms = cuda_ms(lambda: kn.krig_normals_gathered(*operands, **kw), 10)
+        plain_ms = cuda_ms(lambda: kn.krig_normals_gathered_ref(*operands, **kw), 1, warmup=0)
+        q, qa = len(cov), len(acov)
+        nbytes = sum(x.numel() * x.element_size() for x in operands) + C * (8 + k) * 4
+        bnd = bound(nbytes, C * krig_flops(k, 1, 1, q, qa, q_fixed=q))
+        mae = float((res.normal - truth)[res.ok].abs().mean())
+        if cov == NM_TREND3 and mae > 0.3:
+            raise RuntimeError(f"[normals] July normals MAE vs truth {mae:.4f} C > 0.3 C")
+        log(f"[normals] krig_normals_and_gains C={C} k={k} q={q} ({','.join(cov)}) qa={qa} "
+            f"({','.join(acov)}) {weight_kernel}: launches {n[0]} (gathered; indexed {n[1]}); "
+            f"kernel vs plain max_abs_err {err:.3e} (normal vs float64: kernel "
+            f"{e64_kern:.3e}, plain {e64_plain:.3e}; not-ok cells {n_not_ok}); July MAE vs "
+            f"truth {mae:.4f} C; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({t_cmp:.1f} s to compare, "
+            f"{time.perf_counter() - t:.1f} s in all)")
+        if (k, cov, weight_kernel) == (K, NM_TREND3, "bisquare"):
+            report["krig_normals_gathered"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   library_ms=None, **bnd)
+        del operands, head, g, want, want64, res, gains, alone
+    log(f"[normals] {len(NM_CASES)} cases in {time.perf_counter() - t_all:.1f} s")
+    return report, dict(krig_normals_gathered=launched)
 
 
 def scatter_lines(rows64, dev):
@@ -2983,6 +3122,9 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
         return
     report = phase_kernels(world, days, rows64, dev)
     lap("kernels")
+    normals_report, normals_launches = phase_normals(world, days, dev)
+    report.update(normals_report)
+    lap("normals")
     if mode == "kernels":
         return
     for ln in late_build.result():
@@ -3021,6 +3163,7 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
     del cli
     lap("mesh")
     launches.update(ok_launches)
+    launches.update(normals_launches)
     report.update(ok_report)
 
     import torch
@@ -3028,6 +3171,8 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
     sources = dict(
         krig_normals=("topotpu_torch/kernels/csrc/krig_normals.cu",
                       "topotpu/kernels/pallas_krig.py:445"),
+        krig_normals_gathered=("topotpu_torch/kernels/csrc/krig_normals.cu",
+                               "topotpu/kernels/pallas_krig.py:445"),
         scatter_daily=("topotpu_torch/kernels/csrc/scatter_daily.cu",
                        "topotpu/kernels/pallas_scatter.py:67"),
         scatter_daily_packed=("topotpu_torch/kernels/csrc/scatter_daily.cu",

@@ -6,7 +6,9 @@ This file imports nothing of the JAX package.
 
 Tolerances are those of the CPU parity tests: normal and trend rtol 1e-4,
 atol 1e-3 (2e-3 above k = 32), variance rtol 1e-3 atol 1e-4, variogram and
-gains rtol 1e-4 atol 1e-5, identical ok flags; the daily contraction rtol
+gains rtol 1e-4 atol 1e-5, identical ok flags (below k = 16, and for the
+gathered entry's trend on five LST months, a float64 run of the plain
+version decides); the daily contraction rtol
 and atol 1e-5, its packed entry by the integer rule (identical sentinels, at
 most one int16 count apart, under 1 % of counts differing); the OK solve's weights rtol 2e-4 atol 2e-5 (5e-5 above
 k = 32), variance rtol 2e-3 atol 1e-4, identical ok flags and masked
@@ -20,6 +22,8 @@ import torch
 from topotpu_torch.core.dates import get_days_metadata
 from topotpu_torch.interp.point import VarFields, tile_neighborhoods, tile_tables
 from topotpu_torch.io.synthetic import krig_rows_from_world, make_world, tile_inputs_from_world
+from topotpu_torch.kernels import _build
+from topotpu_torch.kernels import krig_normals as kn
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed, krig_normals_indexed_ref
 from topotpu_torch.kernels.ok_solve_fused import (
     ok_solve_fused,
@@ -186,6 +190,134 @@ def test_krig_normals_indexed_masked_stray_index_is_inert(dev):
         torch.testing.assert_close(gains[0][ok.all(0)], wgains[0][ok.all(0)],
                                    rtol=1e-4, atol=1e-5)
     assert not torch.equal(torch.nan_to_num(head), torch.nan_to_num(want[0]))
+
+
+TABLE_COL = dict(elev=0, tdi=1, x=2, y=3, **{f"lst{m}": 7 + m for m in range(12)})
+CELL_COL = dict(elev=0, tdi=1, x=2, y=3, **{f"lst{m}": 4 + m for m in range(12)})
+T3, A2 = ("elev", "tdi", "lst6"), ("elev", "tdi")
+LST5 = ("elev", "tdi", "lst0", "lst1", "lst2", "lst3", "lst4")  # five months share elevation
+
+
+def _gathered(dev, C, k, cov, acov, m=6, seed=0):
+    """The gathered entry's operands for C cells of ``_indexed``'s world,
+    one shared neighbourhood, variable 0 in month m: the trend covariates
+    ``cov`` and anomaly covariates ``acov`` named as in ``TABLE_COL``."""
+    idx, dist, mask, table, cell = _indexed(dev, C, k, False, seed)
+    G = table[idx[0].long()]
+    base = kn.TABLE_BASE
+    cols = lambda names: G[..., [TABLE_COL[n] for n in names]].contiguous()  # noqa: E731
+    cells = lambda names: cell[:, [CELL_COL[n] for n in names]].contiguous()  # noqa: E731
+    return (dist[0].contiguous(), mask[0].contiguous(), G[..., 4:7].contiguous(), cols(cov),
+            cells(cov), G[..., base + m].contiguous(),
+            G[..., base + 12 + 3 * m: base + 15 + 3 * m].contiguous(), cols(acov),
+            cells(acov))
+
+
+@pytest.mark.parametrize("k, C, cov, acov, weight_kernel", [
+    (1, 37, T3, A2, "bisquare"), (8, 300, T3, A2, "gaussian"), (16, 200, ("elev",), ("elev",),
+    "bisquare"), (16, 200, T3, A2, "gaussian"), (16, 200, T3, A2, "uniform"),
+    (24, 129, ("elev", "tdi", "lst6", "x", "y"), ("elev", "x", "y"), "bisquare"),
+    (32, 1000, LST5, ("elev",), "bisquare"), (32, 1000, T3, A2, "bisquare"),
+    (33, 129, ("elev", "tdi", "lst6", "x", "y", "lst0", "lst3"), ("elev",), "bisquare"),
+    (48, 257, T3, A2, "bisquare"), (64, 513, T3, A2, "bisquare"),
+    (64, 513, ("elev", "tdi", "x", "y"), ("elev", "tdi", "x", "y"), "uniform"),
+])
+def test_krig_normals_gathered_kernel_matches_plain(dev, k, C, cov, acov, weight_kernel):
+    """The gathered entry against its plain version, q / qa from 1 / 1 to
+    7 / 1 and 4 / 4 (both instantiations of the covariate bound), k = 1 to
+    64, each weight kernel. Float64 decides below k = 16 and for the trend
+    on five LST months (``tests/test_torch_normals.py``'s rule)."""
+    operands = _gathered(dev, C, k, cov, acov)
+    kw = dict(weight_kernel=weight_kernel)
+    n0 = kn.krig_normals_gathered.launches
+    head, gains = kn.krig_normals_gathered(*operands, **kw)
+    assert kn.krig_normals_gathered.launches == n0 + 1
+    whead, wgains = kn.krig_normals_gathered_ref(*operands, **kw)
+    wide = [t.double() if t.is_floating_point() else t for t in operands]
+    h64, g64 = kn.krig_normals_gathered_ref(*wide, **kw)
+    torch.cuda.synchronize()
+    assert head.shape == (C, 8) and gains.shape == (C, k)
+    head, gains, whead, wgains, h64, g64 = (
+        t.cpu().numpy() for t in (head, gains, whead, wgains, h64, g64))
+    mask = operands[1].cpu().numpy()
+    np.testing.assert_array_equal(head[:, 2], whead[:, 2])
+    ok = whead[:, 2] > 0.5
+    atol_n = 2e-3 if k > 32 else 1e-3
+    by_f64 = k < 16 or cov == LST5
+    for col in (0, 3):
+        got, want, ref = head[ok, col], whead[ok, col], h64[ok, col]
+        if not by_f64 or got.size == 0:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol_n)
+            continue
+        d_kern, d_plain = np.abs(got - ref), np.abs(want - ref)
+        for stat in (np.mean, lambda a: np.quantile(a, 0.95)):
+            assert stat(d_kern) <= 2 * stat(d_plain) + atol_n, (stat(d_kern), stat(d_plain))
+        assert np.abs(got - want).max() <= 0.1
+    np.testing.assert_allclose(head[ok, 1], whead[ok, 1], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(head[:, 4:7], whead[:, 4:7], rtol=1e-4, atol=1e-5)
+    if k >= 16:
+        np.testing.assert_allclose(gains[ok], wgains[ok], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(gains[ok].sum(-1), 1.0, atol=2e-3)
+    elif ok.any():
+        d_kern, d_plain = np.abs(gains[ok] - g64[ok]), np.abs(wgains[ok] - g64[ok])
+        assert d_kern.mean() <= 2 * d_plain.mean() + 1e-5, (d_kern.mean(), d_plain.mean())
+    assert (gains[~mask] == 0.0).all()
+    if C > 3 and k >= 3:
+        assert not ok[3]  # two valid slots, fewer than min_neighbors
+
+
+@pytest.mark.parametrize("k, C", [(16, 200), (32, 1000), (64, 513)])
+def test_krig_normals_gathered_kernel_matches_indexed_kernel(dev, k, C):
+    """On the indexed entry's design (trend elev, tdi, lst_m; anomalies
+    elev, x_km, y_km) the gathered kernel gives the indexed kernel's head and
+    gains for the same system, within the parity tolerance."""
+    idx, dist, mask, table, cell = _indexed(dev, C, k, False)
+    m, v = 6, 1
+    head, gains = krig_normals_indexed(idx, dist, mask, table, cell, [(m, v)], True)
+    c = kn.system_columns(table[idx[0].long()], cell, m, v)
+    g_head, g_gains = kn.krig_normals_gathered(
+        dist[0].contiguous(), mask[0].contiguous(),
+        *(c[n].contiguous() for n in ("xyz", "cov", "cell_cov", "norm", "vario", "acov",
+                                      "cell_acov")))
+    torch.cuda.synchronize()
+    head, gains, g_head, g_gains = (t.cpu().numpy() for t in (head[0], gains[0], g_head, g_gains))
+    np.testing.assert_array_equal(g_head[:, 2], head[:, 2])
+    ok = head[:, 2] > 0.5
+    atol_n = 2e-3 if k > 32 else 1e-3
+    for col, rtol, atol in ((0, 1e-4, atol_n), (3, 1e-4, atol_n), (1, 1e-3, 1e-4)):
+        np.testing.assert_allclose(g_head[ok, col], head[ok, col], rtol=rtol, atol=atol)
+    np.testing.assert_allclose(g_head[:, 4:7], head[:, 4:7], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g_gains[ok], gains[ok], rtol=1e-4, atol=1e-5)
+
+
+def test_krig_normals_gathered_refuses_bad_arguments(dev):
+    operands = _gathered(dev, 64, 8, T3, A2)
+    dist, mask, xyz, cov, ccov, norm, vario, acov, cacov = operands
+    with pytest.raises(ValueError, match="q=6 trend and qa=3"):
+        kn.krig_normals_gathered(dist, mask, xyz, cov.repeat(1, 1, 2), ccov.repeat(1, 2),
+                                 norm, vario, cov, ccov)
+    with pytest.raises(ValueError, match="qa=0"):
+        kn.krig_normals_gathered(*operands[:7], acov[..., :0], cacov[:, :0])
+    with pytest.raises(ValueError, match="k=65"):
+        kn.krig_normals_gathered(*(t.repeat(1, 9, 1)[:, :65].contiguous() if t.dim() == 3
+                                   else t.repeat(1, 9)[:, :65].contiguous() if t.shape[-1] == 8
+                                   else t for t in operands))
+    with pytest.raises(TypeError):
+        kn.krig_normals_gathered(dist.double(), *operands[1:])
+    with pytest.raises(TypeError):
+        kn.krig_normals_gathered(dist, mask.float(), *operands[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kn.krig_normals_gathered(*operands[:3], cov.transpose(1, 2).contiguous().transpose(1, 2),
+                                 *operands[4:])
+    with pytest.raises(ValueError, match="devices"):
+        kn.krig_normals_gathered(dist.cpu(), *operands[1:])
+    # the C entry checks k, q, qa and the weight kernel itself, before it
+    # reads a pointer
+    fn = _build.load("krig_normals", "krig_normals_gathered_launch", kn._GATHERED_ARGTYPES)
+    for C, k, q, qa, wk in ((1, 65, 3, 2, 0), (1, 0, 3, 2, 0), (1, 8, 0, 2, 0), (1, 8, 3, 0, 0),
+                            (1, 8, 7, 2, 0), (1, 8, 3, 2, 3), (-1, 8, 3, 2, 0)):
+        assert fn(*(0,) * 11, C, k, q, qa, 1e-6, 1e-5, 3, wk, 0) != 0, (C, k, q, qa, wk)
+    assert fn(*(0,) * 11, 0, 8, 3, 2, 1e-6, 1e-5, 3, 0, 0) == 0  # no cells: nothing to do
 
 
 def _scatter_case(dev, C, S, k, D, i64, seed=1):

@@ -1,6 +1,11 @@
-"""The tile interpolation step and the station-side kriging stages
+"""The tile interpolation step, regression-kriged normals on gathered
+neighbourhoods, the anomaly gain rows and the station-side kriging stages
 (variogram parameters, cross-validation, nnghs optimisation) on torch
 tensors, and the infill cross-validation."""
+
+from topotpu_torch.interp.normals import NormalsResult, krig_normals  # noqa: F401
+from topotpu_torch.interp.normals import krig_normals_and_gains  # noqa: F401
+from topotpu_torch.interp.anoms import anomaly_gain_rows, scatter_gains  # noqa: F401
 
 from topotpu_torch.interp.point import (  # noqa: F401
     PACK_SENTINEL,

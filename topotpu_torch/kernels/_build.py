@@ -6,6 +6,11 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
+A source named in ``PARTS`` is compiled in that many parts at once, one
+``nvcc -c -DTOPOTPU_PART=<i>`` process a part (the source compiles only
+part i's kernels under that macro), and the objects are linked into the one
+library: its kernels' compile times overlap instead of adding up.
+
 The library lands in ``topotpu_torch/kernels/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the source, every shared
 header ``csrc/*.cuh`` and the flags, so an edited source or header rebuilds
@@ -35,6 +40,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+PARTS = {"krig_normals": 3}  # sources compiled in parts (see the module docstring)
 
 
 def find_nvcc() -> str:
@@ -55,7 +61,7 @@ def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode() + str(PARTS.get(name, 1)).encode())
     key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -71,15 +77,33 @@ def build(name: str) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc, src = find_nvcc(), str(CSRC / f"{name}.cu")
+    objs = [f"{tmp}.{i}.o" for i in range(PARTS.get(name, 0))]
+    if not objs:
+        steps = [[[nvcc, *NVCC_FLAGS, "-o", tmp, src]]]
+    else:
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        steps = [[[nvcc, *flags, "-c", f"-DTOPOTPU_PART={i}", "-o", obj, src]
+                  for i, obj in enumerate(objs)],
+                 [[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]]]
+    log = []
+    try:
+        for step in steps:  # the commands of a step run at once
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for cmd in step]
+            texts = [proc.communicate()[0] for proc in procs]
+            log += texts
+            for cmd, proc, text in zip(step, procs, texts):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{text}")
+    except BaseException:
         os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    pathlib.Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for obj in objs:
+            pathlib.Path(obj).unlink(missing_ok=True)
+    pathlib.Path(str(out) + ".log").write_text("".join(log))
     os.replace(tmp, out)
     return out
 

@@ -51,7 +51,22 @@
 // The solve core (pair distances, assembly, factorisation with its two
 // solves, masked OK sums) is krig_core.cuh, which ok_solve.cu uses too.
 //
-// The C entry launches on the given stream and returns cudaGetLastError():
+// The gathered entry computes the whole function of krig_normals_fused: one
+// system a cell from operands the caller has gathered, (C, k, ...) row-major
+// as topotpu/interp/normals.py takes them, with any q >= 1 trend and qa >= 1
+// anomaly covariates, q + qa <= 8 (the TPU kernel's (8, B) cell-covariate
+// block). It runs the same krig_cell with every design column fixed (one
+// system) and q, qa read at run time; the covariate bound MAXP - 1 is a
+// template argument (4 while q and qa are at most 3, else 8), since the
+// design and the normal equations live in registers with compile-time
+// indices. A warp's 32 lanes read 32 consecutive slots of its cell: one
+// 128-byte line of dist, 32 bytes of mask, and 12 or 4 q consecutive
+// floats a lane of xyz, vario and the covariates. It reads every input
+// byte once (33 k + 4 (q + qa) (k + 1) bytes a cell) and writes 32 + 4 k:
+// under 2 KB a cell at k = 32 against some 25,000 operations, so here too
+// the dependent chain, not memory, bounds it.
+//
+// The C entries launch on the given stream and return cudaGetLastError():
 //   krig_normals_indexed_launch  idx (N, C, k) int32 or int64, dist (N, C, k)
 //       float32, mask (N, C, k) bytes, table (S, F) float32 with columns
 //       [elev, tdi, x_km, y_km, xyz(3), lst(12), per variable: norm(12),
@@ -59,12 +74,44 @@
 //       the systems as host arrays of months and variables. With shared != 0,
 //       N = 1 and every system uses that neighbourhood; else neighbourhood n
 //       serves the systems of month n. 1 <= k <= 64.
+//   krig_normals_gathered_launch  dist (C, k) float32, mask (C, k) bytes,
+//       xyz (C, k, 3), cov (C, k, q), cell_cov (C, q), norm (C, k),
+//       vario (C, k, 3), acov (C, k, qa), cell_acov (C, qa), all float32;
+//       head (C, 8) and gains (C, k) out. 1 <= k <= 64, q, qa >= 1,
+//       q + qa <= 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
 #include "krig_core.cuh"
+
+// The library is compiled in three parts, one nvcc process each, all at once,
+// and linked (kernels/_build.py::PARTS): part 0 the indexed entry, part 1 the
+// gathered entry and its kernels at covariate bound 4, part 2 its kernels at
+// bound 8. Compiled without TOPOTPU_PART, the file holds all three.
+#ifdef TOPOTPU_PART
+#define KN_PART(i) (TOPOTPU_PART == (i))
+#else
+#define KN_PART(i) 1
+#endif
+
+// The gathered entry's operands and settings (see the entry below).
+struct GatheredArgs {
+  const float* dist;
+  const unsigned char* mask;
+  const float *xyz, *cov, *cell_cov, *norm, *vario, *acov, *cell_acov;
+  float *head, *gains;
+  int C, k, q, qa, weight_kernel;
+  float ridge, jitter_frac;
+  int min_neighbors;
+};
+
+// Its launches at covariate bound 4 (part 1) and 8 (part 2).
+cudaError_t krig_normals_gathered_narrow(const GatheredArgs& a,
+                                         cudaStream_t stream);
+cudaError_t krig_normals_gathered_wide(const GatheredArgs& a,
+                                       cudaStream_t stream);
 
 namespace {
 
@@ -440,6 +487,58 @@ struct IndexedSrc {
   }
 };
 
+// Inputs gathered by the caller, one system a cell: q and qa at run time,
+// every design column fixed.
+template <int R>
+struct GatheredSrc {
+  const float* distp;         // this cell's k slots, then 3 k, q k, qa k
+  const unsigned char* maskp;
+  const float* xyzp;
+  const float* covp;
+  const float* ccovp;         // this cell's q trend covariates
+  const float* normp;
+  const float* variop;
+  const float* acovp;
+  const float* cacovp;        // this cell's qa anomaly covariates
+  float* headp;               // this cell's 8 head values
+  float* gainp;               // this cell's k gains
+  int lane, nq, nqa;
+
+  __device__ int q() const { return nq; }
+  __device__ int qa() const { return nqa; }
+  __device__ int q_fixed() const { return nq; }
+  __device__ int n_systems() const { return 1; }
+  __device__ bool runs(int) const { return true; }
+  __device__ float mask(int r) const {
+    return maskp[lane + 32 * r] ? 1.0f : 0.0f;
+  }
+  __device__ float dist(int r) const { return __ldg(distp + lane + 32 * r); }
+  __device__ void xyz(int r, float& x, float& y, float& z) const {
+    const float* p = xyzp + 3 * (lane + 32 * r);
+    x = __ldg(p);
+    y = __ldg(p + 1);
+    z = __ldg(p + 2);
+  }
+  __device__ float cov(int, int i, int r) const {
+    return __ldg(covp + nq * (lane + 32 * r) + i);
+  }
+  __device__ float cell_cov(int, int i) const { return __ldg(ccovp + i); }
+  __device__ float acov(int i, int r) const {
+    return __ldg(acovp + nqa * (lane + 32 * r) + i);
+  }
+  __device__ float cell_acov(int i) const { return __ldg(cacovp + i); }
+  __device__ float norm(int, int r) const {
+    return __ldg(normp + lane + 32 * r);
+  }
+  __device__ float vario(int, int r, int j) const {
+    return __ldg(variop + 3 * (lane + 32 * r) + j);
+  }
+  __device__ void put_head(int, int i, float v) const { headp[i] = v; }
+  __device__ void put_gain(int r, float g) const {
+    gainp[lane + 32 * r] = g;
+  }
+};
+
 template <int R>
 __global__ void __launch_bounds__(32 * krig::WARPS_PER_BLOCK,
                                   krig::min_blocks(R))
@@ -487,6 +586,37 @@ krig_normals_indexed_kernel(
                   lane, k, weight_kernel, ridge, jitter_frac, min_neighbors);
 }
 
+template <int R, int MAXP>
+__global__ void __launch_bounds__(32 * krig::WARPS_PER_BLOCK,
+                                  krig::min_blocks(R))
+krig_normals_gathered_kernel(const __grid_constant__ GatheredArgs a) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t c = (size_t)blockIdx.x * krig::WARPS_PER_BLOCK + warp;
+  if (c >= (size_t)a.C) return;  // whole warps only: no block barrier follows
+
+  const size_t k = a.k;
+  GatheredSrc<R> src;
+  src.distp = a.dist + c * k;
+  src.maskp = a.mask + c * k;
+  src.xyzp = a.xyz + c * 3 * k;
+  src.covp = a.cov + c * a.q * k;
+  src.ccovp = a.cell_cov + c * a.q;
+  src.normp = a.norm + c * k;
+  src.variop = a.vario + c * 3 * k;
+  src.acovp = a.acov + c * a.qa * k;
+  src.cacovp = a.cell_acov + c * a.qa;
+  src.headp = a.head + c * HEAD;
+  src.gainp = a.gains + c * k;
+  src.lane = lane;
+  src.nq = a.q;
+  src.nqa = a.qa;
+  krig_cell<R, MAXP>(
+      src, reinterpret_cast<float*>(smem4) + warp * krig::Layout<R>::FLOATS,
+      lane, a.k, a.weight_kernel, a.ridge, a.jitter_frac, a.min_neighbors);
+}
+
 bool bad_common(int k, int weight_kernel) {
   return k < 1 || k > 64 || weight_kernel < 0 || weight_kernel > 2;
 }
@@ -513,8 +643,28 @@ cudaError_t launch_indexed(const void* idx, int idx64, const float* dist,
   return cudaGetLastError();
 }
 
+template <int R, int MAXP>
+cudaError_t launch_gathered(const GatheredArgs& a, cudaStream_t stream) {
+  size_t bytes;
+  cudaError_t err =
+      krig::shared_bytes<R>(krig_normals_gathered_kernel<R, MAXP>, &bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(((size_t)a.C + krig::WARPS_PER_BLOCK - 1) /
+                             krig::WARPS_PER_BLOCK));
+  krig_normals_gathered_kernel<R, MAXP>
+      <<<grid, 32 * krig::WARPS_PER_BLOCK, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MAXP>
+cudaError_t launch_gathered_k(const GatheredArgs& a, cudaStream_t stream) {
+  return a.k <= 32 ? launch_gathered<1, MAXP>(a, stream)
+                   : launch_gathered<2, MAXP>(a, stream);
+}
+
 }  // namespace
 
+#if KN_PART(0)
 extern "C" int krig_normals_indexed_launch(
     const void* idx, int idx64, const void* dist, const void* mask,
     const void* table, int S, int F, const void* cell, const int* months,
@@ -549,3 +699,48 @@ extern "C" int krig_normals_indexed_launch(
 #undef KI_ARGS
   return (int)err;
 }
+
+#endif
+
+#if KN_PART(1)
+cudaError_t krig_normals_gathered_narrow(const GatheredArgs& a,
+                                         cudaStream_t stream) {
+  return launch_gathered_k<4>(a, stream);
+}
+
+extern "C" int krig_normals_gathered_launch(
+    const void* dist, const void* mask, const void* xyz, const void* cov,
+    const void* cell_cov, const void* norm, const void* vario,
+    const void* acov, const void* cell_acov, void* head, void* gains, int C,
+    int k, int q, int qa, float ridge, float jitter_frac, int min_neighbors,
+    int weight_kernel, void* stream) {
+  if (bad_common(k, weight_kernel) || C < 0 || q < 1 || qa < 1 || q + qa > 8)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  const GatheredArgs a{static_cast<const float*>(dist),
+                       static_cast<const unsigned char*>(mask),
+                       static_cast<const float*>(xyz),
+                       static_cast<const float*>(cov),
+                       static_cast<const float*>(cell_cov),
+                       static_cast<const float*>(norm),
+                       static_cast<const float*>(vario),
+                       static_cast<const float*>(acov),
+                       static_cast<const float*>(cell_acov),
+                       static_cast<float*>(head),
+                       static_cast<float*>(gains),
+                       C, k, q, qa, weight_kernel, ridge, jitter_frac,
+                       min_neighbors};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // MAXP - 1 bounds q and qa
+  const cudaError_t err = q > 3 || qa > 3 ? krig_normals_gathered_wide(a, st)
+                                          : krig_normals_gathered_narrow(a, st);
+  return (int)err;
+}
+#endif
+
+#if KN_PART(2)
+cudaError_t krig_normals_gathered_wide(const GatheredArgs& a,
+                                       cudaStream_t stream) {
+  return launch_gathered_k<8>(a, stream);
+}
+#endif

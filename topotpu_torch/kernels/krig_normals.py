@@ -16,11 +16,18 @@ covers them all in one launch. With ``shared`` there is one neighbourhood
 (N = 1) for every system; without, neighbourhood n serves the systems of
 month n (N = 12). It returns the heads (P, C, 8) and the gains (N, C, k).
 
-The plain version, ``krig_normals_indexed_ref``, is the port of
-``topotpu.interp.normals.krig_normals``: it composes the port's plain
-modules (distance weights, centred design, WLS, variogram interpolation,
-pair distances, covariance assembly, OK solve, GWR gain). Any C and any
-1 <= k <= 64 are taken; no padding.
+``krig_normals_gathered`` is the same kernel's other entry: one system a
+cell from gathered (C, k, ...) operands laid out as
+``topotpu.interp.normals.krig_normals`` takes them, with any q >= 1 trend
+covariates and qa >= 1 anomaly covariates (q + qa <= 8, the TPU kernel's
+eight cell-covariate rows). It returns head (C, 8) and gains (C, k), the
+TPU kernel's (8 + k, B) output transposed. ``interp/normals.py`` calls it.
+
+The plain versions, ``krig_normals_indexed_ref`` and
+``krig_normals_gathered_ref``, compose the port's plain modules (distance
+weights, centred design, WLS, variogram interpolation, pair distances,
+covariance assembly, OK solve, GWR gain). Any C and any 1 <= k <= 64 are
+taken; no padding.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from topotpu_torch.kernels.wls import batched_gwr_gain, batched_wls, center_desi
 WEIGHT_KERNELS = ("bisquare", "gaussian", "uniform")  # kernel's enum order
 OUT_EXTRA = 8  # head values of a system (rows before the k gain rows)
 MAX_SYSTEMS = 96  # systems one indexed launch takes
+MAX_COVARIATES = 8  # q + qa of a gathered call: the TPU kernel's cell-covariate rows
 
 # Station table columns: elev, tdi, x_km, y_km, xyz(3), lst(12), then per
 # variable norm(12) and vario(12 x 3, month-major). Cell table columns: elev,
@@ -52,6 +60,12 @@ _INDEXED_ARGTYPES = (
     + (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 2
     + (ctypes.c_int,) * 3 + (ctypes.c_float, ctypes.c_float)
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+)
+GATHERED = ("dist", "mask", "nbr_xyz", "nbr_cov", "cell_cov", "nbr_norm", "nbr_vario",
+            "anom_cov", "cell_anom_cov")  # the gathered entry's operands, in order
+_GATHERED_ARGTYPES = (
+    (ctypes.c_void_p,) * (len(GATHERED) + 2) + (ctypes.c_int,) * 4
+    + (ctypes.c_float, ctypes.c_float) + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 )
 
 
@@ -89,28 +103,19 @@ def system_columns(G: torch.Tensor, cell: torch.Tensor, m: int, v: int) -> dict:
     )
 
 
-def _cell_variogram(nbr_vario: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(C, k, 3) station params + (C, k) weights -> (C, 3) cell params
-    (``topotpu.interp.normals.interp_cell_variogram``)."""
-    wsum = torch.sum(w, dim=-1, keepdim=True) + 1e-30
-    v = torch.einsum("ck,ckp->cp", w, nbr_vario) / wsum
-    nug = torch.clamp(v[..., 0], min=0.0)
-    psill = torch.clamp(v[..., 1], min=1e-6)
-    rng = torch.clamp(v[..., 2], min=1e-2)
-    return torch.stack([nug, psill, rng], dim=-1)
-
-
 def _head(dist, mask, w, xyz, cov, cell_cov, nbr_norm, nbr_vario, ridge, jitter_frac,
           min_neighbors) -> torch.Tensor:
     """One system's head values (C, 8) from gathered (C, k, ...) inputs and
     the neighbourhood's weights ``w``."""
+    from topotpu_torch.interp.normals import interp_cell_variogram  # interp imports this module
+
     X, x0, _ = center_design(cov, cell_cov, w)
     beta = batched_wls(X, nbr_norm, w, ridge)
     trend = torch.sum(x0 * beta, dim=-1)
     trend_at = torch.einsum("ckp,cp->ck", X, beta)
     resid = torch.where(mask, nbr_norm - trend_at, torch.zeros_like(trend_at))
 
-    vario = _cell_variogram(nbr_vario, w)
+    vario = interp_cell_variogram(nbr_vario, w)
     C, c0, sill = assemble_exp_cov(
         pairwise_km_from_xyz(xyz, xyz), dist,
         vario[:, 0], vario[:, 1], vario[:, 2], mask, jitter_frac=jitter_frac,
@@ -244,3 +249,93 @@ def krig_normals_indexed(
 
 
 krig_normals_indexed.launches = 0
+
+
+def _gathered_args(*operands):
+    """Shapes of the gathered entry's operands (in ``GATHERED``'s order),
+    checked: (C, k, q, qa, the expected shape of each operand)."""
+    what = "krig_normals_gathered"
+    dist, nbr_cov, anom_cov = operands[0], operands[3], operands[7]
+    if dist.dim() != 2 or nbr_cov.dim() != 3 or anom_cov.dim() != 3:
+        raise ValueError(f"{what}: dist must be (C, k), nbr_cov (C, k, q) and anom_cov "
+                         f"(C, k, qa)")
+    C, k = dist.shape
+    q, qa = nbr_cov.shape[-1], anom_cov.shape[-1]
+    if not 1 <= k <= 64:
+        raise ValueError(f"{what}: k={k} outside 1..64")
+    if q < 1 or qa < 1 or q + qa > MAX_COVARIATES:
+        raise ValueError(f"{what}: q={q} trend and qa={qa} anomaly covariates; each must "
+                         f"be at least 1 and q + qa at most {MAX_COVARIATES}")
+    shapes = ((C, k), (C, k), (C, k, 3), (C, k, q), (C, q), (C, k), (C, k, 3), (C, k, qa),
+              (C, qa))
+    for name, t, shape in zip(GATHERED, operands, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {shape}")
+    return C, k, q, qa, shapes
+
+
+def krig_normals_gathered_ref(
+    dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario, anom_cov, cell_anom_cov,
+    ridge: float = 1e-6, jitter_frac: float = 1e-5, min_neighbors: int = 3,
+    weight_kernel: str = "bisquare",
+):
+    """Plain version of the gathered entry: the same operands, head (C, 8)
+    and gains (C, k), computed with the port's batched torch modules in the
+    dtype of the operands (``topotpu.interp.normals.krig_normals`` and
+    ``anomaly_gain_rows`` on the same neighbourhood)."""
+    operands = (dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario, anom_cov,
+                cell_anom_cov)
+    _gathered_args(*operands)
+    mask = mask.bool()
+    w = distance_weights(dist, mask, weight_kernel)
+    head = _head(dist, mask, w, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario, ridge,
+                 jitter_frac, min_neighbors)
+    return head, _gains(w, anom_cov, cell_anom_cov, ridge)
+
+
+def krig_normals_gathered(
+    dist: torch.Tensor,           # (C, k) float32 neighbour distances, km
+    mask: torch.Tensor,           # (C, k) bool
+    nbr_xyz: torch.Tensor,        # (C, k, 3) float32 unit-sphere xyz of the neighbours
+    nbr_cov: torch.Tensor,        # (C, k, q) float32 trend covariates
+    cell_cov: torch.Tensor,       # (C, q) float32 trend covariates at the cell
+    nbr_norm: torch.Tensor,       # (C, k) float32 station normals
+    nbr_vario: torch.Tensor,      # (C, k, 3) float32 station nugget, psill, range
+    anom_cov: torch.Tensor,       # (C, k, qa) float32 anomaly covariates
+    cell_anom_cov: torch.Tensor,  # (C, qa) float32 anomaly covariates at the cell
+    ridge: float = 1e-6,
+    jitter_frac: float = 1e-5,
+    min_neighbors: int = 3,
+    weight_kernel: str = "bisquare",
+):
+    """One system a cell in one launch -> (head (C, 8), gains (C, k)).
+    1 <= k <= 64, q and qa at least 1, q + qa at most 8. Each operand is
+    read as laid out, so CUDA operands must be contiguous."""
+    what = "krig_normals_gathered"
+    operands = (dist, mask, nbr_xyz, nbr_cov, cell_cov, nbr_norm, nbr_vario, anom_cov,
+                cell_anom_cov)
+    dev = _build.common_device(what, *operands)
+    if weight_kernel not in WEIGHT_KERNELS:
+        raise ValueError(f"unknown weight kernel {weight_kernel!r}")
+    kw = dict(ridge=ridge, jitter_frac=jitter_frac, min_neighbors=min_neighbors,
+              weight_kernel=weight_kernel)
+    if dev.type == "cpu":
+        return krig_normals_gathered_ref(*operands, **kw)
+    C, k, q, qa, shapes = _gathered_args(*operands)
+    for name, t, shape in zip(GATHERED, operands, shapes):
+        _build.require(what, name, t, torch.bool if name == "mask" else torch.float32, shape)
+    head = torch.empty((C, OUT_EXTRA), dtype=torch.float32, device=dev)
+    gains = torch.empty((C, k), dtype=torch.float32, device=dev)
+    fn = _build.load("krig_normals", "krig_normals_gathered_launch", _GATHERED_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(
+            *(t.data_ptr() for t in operands), head.data_ptr(), gains.data_ptr(), C, k, q,
+            qa, ridge, jitter_frac, min_neighbors, WEIGHT_KERNELS.index(weight_kernel),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, what)
+    krig_normals_gathered.launches += 1
+    return head, gains
+
+
+krig_normals_gathered.launches = 0
