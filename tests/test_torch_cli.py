@@ -429,6 +429,19 @@ def test_point_matches_the_grid_and_jax(runs, tmp_path):
                                np.array(b[1:])[:, 1:].astype(float), atol=6e-2)
 
 
+def test_a_stage_with_trace_writes_the_trace_and_its_spans(runs, tmp_path):
+    cfg = _copy(runs["port"][0], tmp_path, "traced")
+    rc, lines = _run(tmain.main, ["krig-params", "--config", str(cfg),
+                                  "--trace", str(tmp_path / "trace")])
+    assert rc == 0 and lines[-1]["stage"] == "krig-params"
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())["spans"]
+    names = [s["name"] for s in spans]
+    assert names.count("params.krig_params") == 2 and names.count("variogram.fit") == 24
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert ranges.count("params.krig_params") == 2 and ranges.count("variogram.fit") == 24
+
+
 def test_point_rejects_out_of_grid_sites(tmp_path):
     cfg = TopoConfig(data_dir=str(tmp_path / "data"), start_date="2015-01-01",
                      end_date="2015-01-31", tile_rows=24, tile_cols=24)

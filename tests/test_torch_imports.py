@@ -151,7 +151,11 @@ RENAMED = {  # the port's name of a TPU kernel's entry
     ("kernels/pallas_krig.py", "krig_normals_fused"): "krig_normals_gathered",
     ("kernels/pallas_scatter.py", "scatter_daily_matmul"): "scatter_daily",
 }
-NOT_PORTED = {  # ROADMAP.md's "Do not port": they exist for the TPU, Mosaic or XLA only
+NOT_PORTED = {  # ROADMAP.md's "Do not port": they exist for the TPU, Mosaic or XLA only;
+    # and what the port replaced by its own
+    ("utils/profiling.py", "Timer"):
+        "wall-time scopes that no stage opened; the port's stages open utils.profiling.span, "
+        "read through recording() and device_trace",
     ("kernels/pallas_krig.py", "padded_kernel_k"):
         "Mosaic compiles k in (33, 55) slowly; the CUDA kernel takes any 1 <= k <= 64",
     ("kernels/pallas_krig.py", "LANES"): "the TPU's 128-lane cell blocks; the kernels take any C",

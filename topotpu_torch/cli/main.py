@@ -139,8 +139,22 @@ def main(argv=None) -> int:
                          "artifact already exists (default: resume — skip "
                          "completed stages; the artifact chain is the "
                          "checkpoint)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="profile the stage and record its spans: DIR gets "
+                         "trace.json (the torch.profiler Chrome trace) and "
+                         "spans.json (every thread's spans on the trace's "
+                         "clock); default off")
     args = ap.parse_args(argv)
+    if args.trace:
+        from topotpu_torch.utils.profiling import device_trace
 
+        with device_trace(args.trace):
+            return _stages(ap, args)
+    return _stages(ap, args)
+
+
+def _stages(ap, args) -> int:
+    """Run the stages ``args`` names."""
     cfg = _load_config(args.config)
     if args.data_dir or args.stall_timeout is not None:
         import dataclasses

@@ -88,6 +88,7 @@ from topotpu_torch.interp.point import (
 )
 from topotpu_torch.io.ncdf import FILL_I16, TileWriter
 from topotpu_torch.io.rasters import RasterStack
+from topotpu_torch.utils.profiling import span
 from topotpu_torch.utils.status import StatusCheck
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(bool): torch.bool}
@@ -152,11 +153,13 @@ class _Staging:
         n = self._uses.get(layout, 0)
         self._uses[layout] = n + 1
         if len(ring) < self.depth:
-            ring.append([torch.empty(total, dtype=torch.uint8, pin_memory=True), None])
+            with span("engine.pin_alloc"):
+                ring.append([torch.empty(total, dtype=torch.uint8, pin_memory=True), None])
         slot = ring[n % self.depth]
         host, copied = slot
         if copied is not None:
-            copied.synchronize()
+            with span("engine.stage_wait"):
+                copied.synchronize()
         raw = host.numpy()
         for a, off in zip(fields.values(), offsets):
             raw[off : off + a.nbytes].view(a.dtype).reshape(a.shape)[...] = a
@@ -200,8 +203,10 @@ class _PinnedPool:
                 if self.allocated.get(key, 0) < self.cap:
                     self.allocated[key] = self.allocated.get(key, 0) + 1
                     break
-                self._cond.wait()
-        return [torch.empty(shape, dtype=dt, pin_memory=True) for shape, dt in key]
+                with span("engine.buffer_wait"):
+                    self._cond.wait()
+        with span("engine.pin_alloc"):
+            return [torch.empty(shape, dtype=dt, pin_memory=True) for shape, dt in key]
 
     def give(self, key, bufs: list) -> None:
         with self._cond:
@@ -520,19 +525,20 @@ class TileEngine:
         touch until mosaic."""
         import os
 
-        try:
-            if path.stat().st_size < cls.PACE_MIN_BYTES:
+        with span("engine.write.pace"):
+            try:
+                if path.stat().st_size < cls.PACE_MIN_BYTES:
+                    return
+                fd = os.open(path, os.O_RDONLY)
+            except OSError:
                 return
-            fd = os.open(path, os.O_RDONLY)
-        except OSError:
-            return
-        try:
-            os.fdatasync(fd)
-            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
-        except (AttributeError, OSError):
-            pass
-        finally:
-            os.close(fd)
+            try:
+                os.fdatasync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            except (AttributeError, OSError):
+                pass
+            finally:
+                os.close(fd)
 
     # ------------------------------------------------- launch and fetch
     def _start_fetch(self, out):
@@ -555,16 +561,17 @@ class TileEngine:
         host, so the transfer overlaps the next tile's prepare. ``fn``
         overrides the engine-default step (per-tile optimized k)."""
         fn = fn or self._fn
-        shards = shard_tile_inputs(self.mesh, task.inputs)
-        if self._flat:
-            slot = self._dev_slot()
-            if self._direct:
-                out = fn(shards, slot, self._dev_scales())
+        with span("engine.launch", self._span_key(task.spec)):
+            shards = shard_tile_inputs(self.mesh, task.inputs)
+            if self._flat:
+                slot = self._dev_slot()
+                if self._direct:
+                    out = fn(shards, slot, self._dev_scales())
+                else:
+                    out = fn(shards, slot)
             else:
-                out = fn(shards, slot)
-        else:
-            out = fn(shards)
-        return self._start_fetch(out)
+                out = fn(shards)
+            return self._start_fetch(out)
 
     def _get_var_fn(self, shared: bool, params):
         """Single-variable tile step for a per-tile InterpParams override
@@ -607,12 +614,19 @@ class TileEngine:
             self._save_manifest()
 
     def _save_manifest(self):
-        tmp = self.manifest_path.with_suffix(".tmp")
-        tmp.write_text(json.dumps(self.manifest, indent=0))
-        tmp.replace(self.manifest_path)
+        with span("engine.write.manifest"):
+            tmp = self.manifest_path.with_suffix(".tmp")
+            tmp.write_text(json.dumps(self.manifest, indent=0))
+            tmp.replace(self.manifest_path)
 
     def _tile_key(self, spec: TileSpec, var: str) -> str:
         return f"{var}_{spec.tile_id:05d}"
+
+    def _span_key(self, spec: TileSpec) -> tuple:
+        """The key of a tile's spans on every thread: (the chunk's day
+        offset in the mosaic, the tile id); a spec without a tile id keys
+        as it is."""
+        return (getattr(self, "mosaic_t0", 0), getattr(spec, "tile_id", spec))
 
     def _tile_file(self, spec: TileSpec, var: str) -> pathlib.Path:
         return self.out_dir / f"{var}_tile{spec.tile_id:05d}.h5"
@@ -752,9 +766,12 @@ class TileEngine:
                 for n, a in fields.items()}
 
     def prepare(self, spec: TileSpec, stations: StationSet) -> TileTask:
-        fields, pool = self._host_inputs(spec, stations)
-        return TileTask(spec=spec, inputs=TileInputs(**self._upload(fields)),
-                        pool_idx=pool)
+        with span("engine.prepare", self._span_key(spec)):
+            with span("engine.prepare.host"):
+                fields, pool = self._host_inputs(spec, stations)
+            with span("engine.stage"):
+                inputs = TileInputs(**self._upload(fields))
+            return TileTask(spec=spec, inputs=inputs, pool_idx=pool)
 
     # ------------------------------------------------------------- writing
     def _write_tile_direct(
@@ -773,25 +790,26 @@ class TileEngine:
         nr, nc = spec.nrows, spec.ncols
         ndays = self.days.ndays
 
-        buf = np.asarray(result.buf)
-        sc = np.asarray(result.scales)
-        daily = buf[:ndays].reshape(ndays, tr, tc)[:, :nr, :nc]
-        nq = buf[ndays : ndays + 12].reshape(12, tr, tc)[:, :nr, :nc]
-        okm = nq != FILL_I16
-        normal = se = None
-        if self.mosaic_t0 == 0:
-            sq = buf[ndays + 12 : ndays + 24].reshape(12, tr, tc)[:, :nr, :nc]
-            normal = np.where(
-                okm, nq.astype(np.float32) * float(sc[2]) + float(sc[3]),
-                np.nan,
-            )
-            se = np.where(
-                okm, sq.astype(np.float32) * float(sc[4]) + float(sc[5]),
-                np.nan,
-            )
-        w = self._mosaic[var]  # opened by run/run_pair on the main thread
-        w.write_tile(spec.row0, spec.col0, daily, normal, se,
-                     t0=self.mosaic_t0)
+        with span("engine.write.mosaic"):
+            buf = np.asarray(result.buf)
+            sc = np.asarray(result.scales)
+            daily = buf[:ndays].reshape(ndays, tr, tc)[:, :nr, :nc]
+            nq = buf[ndays : ndays + 12].reshape(12, tr, tc)[:, :nr, :nc]
+            okm = nq != FILL_I16
+            normal = se = None
+            if self.mosaic_t0 == 0:
+                sq = buf[ndays + 12 : ndays + 24].reshape(12, tr, tc)[:, :nr, :nc]
+                normal = np.where(
+                    okm, nq.astype(np.float32) * float(sc[2]) + float(sc[3]),
+                    np.nan,
+                )
+                se = np.where(
+                    okm, sq.astype(np.float32) * float(sc[4]) + float(sc[5]),
+                    np.nan,
+                )
+            w = self._mosaic[var]  # opened by run/run_pair on the main thread
+            w.write_tile(spec.row0, spec.col0, daily, normal, se,
+                         t0=self.mosaic_t0)
         land = self.rasters.landmask[
             spec.row0 : spec.row0 + nr, spec.col0 : spec.col0 + nc
         ]
@@ -801,25 +819,26 @@ class TileEngine:
         # so validation need not re-read the whole product. This verifies
         # the write->file->read round trip (layout/offset/day-axis bugs),
         # not physical disk integrity.
-        raw_back = w.read_tile_raw(spec.row0, spec.col0, nr, nc,
-                                   t0=self.mosaic_t0, nt=daily.shape[0])
-        cov_cells = (raw_back != FILL_I16).all(0) & land
-        covered = int(cov_cells.sum())
-        verify = {"covered": covered}
-        if covered < int(land.sum()):
-            # Exact cross-chunk coverage: record WHICH land cells this
-            # chunk covered (2 KB bitmap per 128x128 tile) so chunked
-            # validation can AND bitmaps across chunks. Fully-covered tiles
-            # skip the bitmap, so healthy manifests don't grow at all.
-            import base64
+        with span("engine.write.verify"):
+            raw_back = w.read_tile_raw(spec.row0, spec.col0, nr, nc,
+                                       t0=self.mosaic_t0, nt=daily.shape[0])
+            cov_cells = (raw_back != FILL_I16).all(0) & land
+            covered = int(cov_cells.sum())
+            verify = {"covered": covered}
+            if covered < int(land.sum()):
+                # Exact cross-chunk coverage: record WHICH land cells this
+                # chunk covered (2 KB bitmap per 128x128 tile) so chunked
+                # validation can AND bitmaps across chunks. Fully-covered
+                # tiles skip the bitmap, so healthy manifests don't grow.
+                import base64
 
-            verify["cov_bits"] = base64.b64encode(
-                np.packbits(cov_cells.reshape(-1)).tobytes()
-            ).decode()
-        if normal is not None:
-            nb, sb = w.read_monthly_back(spec.row0, spec.col0, nr, nc)
-            verify["normal"] = int((np.isfinite(nb).all(0) & land).sum())
-            verify["se"] = int((np.isfinite(sb).all(0) & land).sum())
+                verify["cov_bits"] = base64.b64encode(
+                    np.packbits(cov_cells.reshape(-1)).tobytes()
+                ).decode()
+            if normal is not None:
+                nb, sb = w.read_monthly_back(spec.row0, spec.col0, nr, nc)
+                verify["normal"] = int((np.isfinite(nb).all(0) & land).sum())
+                verify["se"] = int((np.isfinite(sb).all(0) & land).sum())
         self._pace_writeback(w.path)
         kinfo = self._manifest_k(spec, var)
         self._record_tile(
@@ -859,7 +878,7 @@ class TileEngine:
             spec.row0 : spec.row0 + nr, spec.col0 : spec.col0 + nc
         ]
         sub = self.rasters.grid.subgrid(spec.row0, spec.col0, nr, nc)
-        with TileWriter(
+        with span("engine.write.file"), TileWriter(
             self._tile_file(spec, var), sub, self.days.date64,
             pack=True, compress=self.config.output_compress,
         ) as w:
@@ -910,7 +929,7 @@ class TileEngine:
         se = np.where(okm, se, np.nan)
 
         sub = self.rasters.grid.subgrid(spec.row0, spec.col0, nr, nc)
-        with TileWriter(
+        with span("engine.write.file"), TileWriter(
             self._tile_file(spec, var), sub, self.days.date64,
             pack=self.config.output_pack, compress=self.config.output_compress,
         ) as w:
@@ -996,7 +1015,8 @@ class TileEngine:
                     _release(fut)
                     continue  # drain so upstream put() unblocks
                 try:
-                    host = self._fetch(fut)
+                    with span("engine.fetch_wait", self._span_key(spec)):
+                        host = self._fetch(fut)
                     progress_t[0] = time.monotonic()
                     q_write.put((spec, host, fut))
                 except BaseException as e:  # noqa: BLE001 — re-raised below
@@ -1013,7 +1033,8 @@ class TileEngine:
                 try:
                     if errs:
                         continue
-                    write(spec, host)
+                    with span("engine.write", self._span_key(spec)):
+                        write(spec, host)
                     n_done += 1
                     progress_t[0] = time.monotonic()
                     status.tick()
@@ -1046,17 +1067,23 @@ class TileEngine:
             for spec in pending:
                 if errs:
                     break
-                q_fetch.put(step(spec))
+                item = step(spec)
+                with span("engine.queue_wait"):
+                    q_fetch.put(item)
                 progress_t[0] = time.monotonic()  # dispatch
         finally:
-            q_fetch.put(None)
-            # join the workers FIRST: a wedged fetch thread blocks this join
-            # forever, and that is exactly the window the watchdog guards —
-            # only signal it once the pipeline has genuinely drained
-            for t in threads:
-                if t.daemon:
-                    continue  # the watchdog exits via the event below
-                t.join()
+            # the main thread waits here for the writer to finish the tiles
+            # still in flight
+            with span("engine.drain"):
+                q_fetch.put(None)
+                # join the workers FIRST: a wedged fetch thread blocks this
+                # join forever, and that is exactly the window the watchdog
+                # guards — only signal it once the pipeline has genuinely
+                # drained
+                for t in threads:
+                    if t.daemon:
+                        continue  # the watchdog exits via the event below
+                    t.join()
             finished.set()
         if errs:
             raise errs[0]
@@ -1104,13 +1131,14 @@ class TileEngine:
             self._open_mosaic(var)  # full-span file, parent's calendar
         try:
             for sub, day_sel in self._iter_chunk_engines(years_per_chunk):
-                n_done += sub.run(
-                    var,
-                    dataclasses.replace(
-                        stations, anoms=stations.anoms[:, day_sel]
-                    ),
-                    progress=progress,
-                )
+                with span("engine.chunk", int(np.argmax(day_sel))):
+                    n_done += sub.run(
+                        var,
+                        dataclasses.replace(
+                            stations, anoms=stations.anoms[:, day_sel]
+                        ),
+                        progress=progress,
+                    )
         except BaseException:
             self._close_mosaics(finalize=False)
             raise
@@ -1185,20 +1213,23 @@ class TileEngine:
         """Host prep for the two-variable step: var A's full TileInputs plus
         var B's station fields gathered over the SAME pool, staged to the
         device together."""
-        fields, pool = self._host_inputs(spec, a)
-        anoms_b = group_days_by_month(
-            b.anoms[pool].astype(np.float32), self.layout
-        )
-        fields.update(
-            b_norm=np.asarray(b.norm[pool], np.float32),
-            b_vario=np.asarray(b.vario[pool], np.float32),
-            b_anoms=np.moveaxis(anoms_b, 1, 0),
-        )
-        dev = self._upload(fields)
-        bf = VarFields(norm=dev.pop("b_norm"), vario=dev.pop("b_vario"),
-                       anoms=dev.pop("b_anoms"))
-        task = TileTask(spec=spec, inputs=TileInputs(**dev), pool_idx=pool)
-        return task, PairTileInputs(geom=task.inputs, b=bf)
+        with span("engine.prepare", self._span_key(spec)):
+            with span("engine.prepare.host"):
+                fields, pool = self._host_inputs(spec, a)
+                anoms_b = group_days_by_month(
+                    b.anoms[pool].astype(np.float32), self.layout
+                )
+                fields.update(
+                    b_norm=np.asarray(b.norm[pool], np.float32),
+                    b_vario=np.asarray(b.vario[pool], np.float32),
+                    b_anoms=np.moveaxis(anoms_b, 1, 0),
+                )
+            with span("engine.stage"):
+                dev = self._upload(fields)
+            bf = VarFields(norm=dev.pop("b_norm"), vario=dev.pop("b_vario"),
+                           anoms=dev.pop("b_anoms"))
+            task = TileTask(spec=spec, inputs=TileInputs(**dev), pool_idx=pool)
+            return task, PairTileInputs(geom=task.inputs, b=bf)
 
     def _write_tile_pair(
         self, spec: TileSpec, var_a: str, var_b: str, result
@@ -1221,17 +1252,18 @@ class TileEngine:
             # run-global lattice: raw compare, b >= a - 1, valid only in
             # (tmin, tmax) call order); recorded per pair so validation
             # needs no second pass over the product
-            both = (raw_a != FILL_I16) & (raw_b != FILL_I16)
-            viol = int((both & (
-                raw_b.astype(np.int32) < raw_a.astype(np.int32) - 1
-            )).sum())
-            pairs = int(both.sum())
-            for v in (var_a, var_b):
-                info = self.manifest["tiles"].get(self._tile_key(spec, v))
-                if info is not None:
-                    info.setdefault("verify", {}).update(
-                        viol=viol, pairs=pairs
-                    )
+            with span("engine.write.viol"):
+                both = (raw_a != FILL_I16) & (raw_b != FILL_I16)
+                viol = int((both & (
+                    raw_b.astype(np.int32) < raw_a.astype(np.int32) - 1
+                )).sum())
+                pairs = int(both.sum())
+                for v in (var_a, var_b):
+                    info = self.manifest["tiles"].get(self._tile_key(spec, v))
+                    if info is not None:
+                        info.setdefault("verify", {}).update(
+                            viol=viol, pairs=pairs
+                        )
             self._save_manifest()
 
     def run_pair(
@@ -1287,16 +1319,17 @@ class TileEngine:
 
         def step(spec):
             task, pair = self.prepare_pair(spec, stations_a, stations_b)
-            p_spec = self._params_for(spec, var_a, var_b)
-            fn_spec = fn if p_spec is None else self._get_pair_fn(
-                shared, reconcile=reconcile, params=p_spec
-            )
-            shards = shard_pair_inputs(self.mesh, pair)
-            if fixed is not None:
-                out = fn_spec(shards, slot, fixed)
-            else:
-                out = fn_spec(shards, slot)
-            return task.spec, self._start_fetch(out)
+            with span("engine.launch", self._span_key(spec)):
+                p_spec = self._params_for(spec, var_a, var_b)
+                fn_spec = fn if p_spec is None else self._get_pair_fn(
+                    shared, reconcile=reconcile, params=p_spec
+                )
+                shards = shard_pair_inputs(self.mesh, pair)
+                if fixed is not None:
+                    out = fn_spec(shards, slot, fixed)
+                else:
+                    out = fn_spec(shards, slot)
+                return task.spec, self._start_fetch(out)
 
         try:
             n_done = self._pipelined(
@@ -1332,17 +1365,18 @@ class TileEngine:
             for sub, day_sel in self._iter_chunk_engines(years_per_chunk):
                 if self._pair_fns is not None:
                     sub._pair_fns = self._pair_fns
-                chunk_done = sub.run_pair(
-                    var_a,
-                    var_b,
-                    dataclasses.replace(
-                        stations_a, anoms=stations_a.anoms[:, day_sel]
-                    ),
-                    dataclasses.replace(
-                        stations_b, anoms=stations_b.anoms[:, day_sel]
-                    ),
-                    progress=progress,
-                )
+                with span("engine.chunk", int(np.argmax(day_sel))):
+                    chunk_done = sub.run_pair(
+                        var_a,
+                        var_b,
+                        dataclasses.replace(
+                            stations_a, anoms=stations_a.anoms[:, day_sel]
+                        ),
+                        dataclasses.replace(
+                            stations_b, anoms=stations_b.anoms[:, day_sel]
+                        ),
+                        progress=progress,
+                    )
                 for v, c in chunk_done.items():
                     n_done[v] += c
                 if sub._pair_fns is not None:

@@ -19,6 +19,7 @@ from topotpu_torch.geo.distance import (
     pairwise_great_circle_km,
     unit_xyz,
 )
+from topotpu_torch.utils.profiling import span
 
 
 class Neighborhood(NamedTuple):
@@ -65,44 +66,45 @@ def select_neighbors(
     ``exclude_self_km`` leaves out stations within that distance (exact
     branch only), twins included.
     """
-    S = stn_lon.shape[0]
-    if cos_matrix is not None and exclude_self_km > 0.0:
-        raise ValueError(
-            "exclude_self_km requires the exact-distance branch; pass "
-            "dist_matrix (or neither matrix), not cos_matrix"
-        )
-    cols = torch.arange(S, device=stn_lon.device)
-    if cos_matrix is not None or (dist_matrix is None and exclude_self_km == 0.0):
-        if cos_matrix is None:
-            cos_matrix = unit_xyz(cell_lon, cell_lat) @ unit_xyz(stn_lon, stn_lat).T
-        neg_inf = float("-inf")
-        score = cos_matrix.masked_fill(~stn_valid[None, :], neg_inf)
+    with span("geo.select_neighbors"):
+        S = stn_lon.shape[0]
+        if cos_matrix is not None and exclude_self_km > 0.0:
+            raise ValueError(
+                "exclude_self_km requires the exact-distance branch; pass "
+                "dist_matrix (or neither matrix), not cos_matrix"
+            )
+        cols = torch.arange(S, device=stn_lon.device)
+        if cos_matrix is not None or (dist_matrix is None and exclude_self_km == 0.0):
+            if cos_matrix is None:
+                cos_matrix = unit_xyz(cell_lon, cell_lat) @ unit_xyz(stn_lon, stn_lat).T
+            neg_inf = float("-inf")
+            score = cos_matrix.masked_fill(~stn_valid[None, :], neg_inf)
+            if exclude_idx is not None:
+                score = score.masked_fill(cols[None, :] == exclude_idx[:, None], neg_inf)
+            score = _pad_to_k(score, k, neg_inf)
+            top_score, idx = torch.topk(score, k, dim=-1, largest=True, sorted=True)
+            idx = torch.clamp(idx, max=S - 1)
+            mask = torch.isfinite(top_score)
+            dist = great_circle_km(
+                cell_lon[:, None], cell_lat[:, None], stn_lon[idx], stn_lat[idx]
+            )
+            dist = torch.where(mask, dist, torch.zeros_like(dist))
+            return Neighborhood(idx=idx, dist=dist, mask=mask)
+
+        if dist_matrix is None:
+            dist_matrix = pairwise_great_circle_km(cell_lon, cell_lat, stn_lon, stn_lat)
+        inf = float("inf")
+        d = dist_matrix.masked_fill(~stn_valid[None, :], inf)
+        if exclude_self_km > 0.0:
+            d = d.masked_fill(d <= exclude_self_km, inf)
         if exclude_idx is not None:
-            score = score.masked_fill(cols[None, :] == exclude_idx[:, None], neg_inf)
-        score = _pad_to_k(score, k, neg_inf)
-        top_score, idx = torch.topk(score, k, dim=-1, largest=True, sorted=True)
+            d = d.masked_fill(cols[None, :] == exclude_idx[:, None], inf)
+        d = _pad_to_k(d, k, inf)
+        dist, idx = torch.topk(d, k, dim=-1, largest=False, sorted=True)
         idx = torch.clamp(idx, max=S - 1)
-        mask = torch.isfinite(top_score)
-        dist = great_circle_km(
-            cell_lon[:, None], cell_lat[:, None], stn_lon[idx], stn_lat[idx]
-        )
+        mask = torch.isfinite(dist)
         dist = torch.where(mask, dist, torch.zeros_like(dist))
         return Neighborhood(idx=idx, dist=dist, mask=mask)
-
-    if dist_matrix is None:
-        dist_matrix = pairwise_great_circle_km(cell_lon, cell_lat, stn_lon, stn_lat)
-    inf = float("inf")
-    d = dist_matrix.masked_fill(~stn_valid[None, :], inf)
-    if exclude_self_km > 0.0:
-        d = d.masked_fill(d <= exclude_self_km, inf)
-    if exclude_idx is not None:
-        d = d.masked_fill(cols[None, :] == exclude_idx[:, None], inf)
-    d = _pad_to_k(d, k, inf)
-    dist, idx = torch.topk(d, k, dim=-1, largest=False, sorted=True)
-    idx = torch.clamp(idx, max=S - 1)
-    mask = torch.isfinite(dist)
-    dist = torch.where(mask, dist, torch.zeros_like(dist))
-    return Neighborhood(idx=idx, dist=dist, mask=mask)
 
 
 def distance_weights(

@@ -26,6 +26,7 @@ from topotpu_torch.geo.distance import pairwise_great_circle_km
 from topotpu_torch.interp.convert import to_tensor
 from topotpu_torch.oracle.numpy_ref import haversine_km
 from topotpu_torch.stats.ppca import ppca_impute, variance_adjust
+from topotpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -161,45 +162,54 @@ def infill_network(
     is [target | n_neighbors correlated stations]. Stations with fewer than
     ``min_obs_days`` observations (or half the span, if less) are imputed
     but flagged ``bad``."""
-    if batch_size is None:
-        batch_size = params.batch_size
-    S, T = obs.shape
-    mask = np.isfinite(obs)
-    obs0 = np.where(mask, obs, 0.0).astype(np.float32)
-    preds = select_predictors(obs, mask, params.n_neighbors, stn_lon, stn_lat, device=device)
-    bad = mask.sum(axis=1) < min(min_obs_days, T // 2)
+    with span("infill.call"):
+        if batch_size is None:
+            batch_size = params.batch_size
+        S, T = obs.shape
+        mask = np.isfinite(obs)
+        obs0 = np.where(mask, obs, 0.0).astype(np.float32)
+        with span("infill.select_predictors"):
+            preds = select_predictors(obs, mask, params.n_neighbors, stn_lon, stn_lat,
+                                      device=device)
+        bad = mask.sum(axis=1) < min(min_obs_days, T // 2)
 
-    V = 1 + preds.shape[1]  # select_predictors clamps to S-1 on tiny pools
-    n_comp = min(params.n_components, V - 1)
-    obs_dev = to_tensor(obs0, device)
-    mask_dev = to_tensor(mask, device, torch.bool)
-    midx_dev = to_tensor(month_idx, device, torch.int64)
-    preds_dev = to_tensor(preds, device, torch.int64)
-    filled = obs_dev.clone()
-    n_iters = torch.zeros(S, dtype=torch.int32, device=obs_dev.device)
+        V = 1 + preds.shape[1]  # select_predictors clamps to S-1 on tiny pools
+        n_comp = min(params.n_components, V - 1)
+        obs_dev = to_tensor(obs0, device)
+        mask_dev = to_tensor(mask, device, torch.bool)
+        midx_dev = to_tensor(month_idx, device, torch.int64)
+        preds_dev = to_tensor(preds, device, torch.int64)
+        filled = obs_dev.clone()
+        n_iters = torch.zeros(S, dtype=torch.int32, device=obs_dev.device)
 
-    pad_to = ((S + batch_size - 1) // batch_size) * batch_size
-    # a batch's EM runs until its slowest element converges, so similar
-    # targets (by observation count) share batches; per-target results do
-    # not depend on the batch, so this is pure scheduling
-    by_difficulty = np.argsort(mask.sum(axis=1), kind="stable").astype(np.int64)
-    order = to_tensor(by_difficulty[np.arange(pad_to) % S], device, torch.int64)  # wrap padding
-    for start in range(0, pad_to, batch_size):
-        tgt = order[start : start + batch_size]
-        cols = torch.cat([tgt[:, None], preds_dev[tgt]], dim=1)  # (B, V)
-        tf, ni = _infill_batch(obs_dev, mask_dev, cols, midx_dev, n_comp, params.max_iters,
-                               params.tol)
-        filled[tgt] = tf  # wrapped padding targets recompute identically
-        n_iters[tgt] = ni
+        pad_to = ((S + batch_size - 1) // batch_size) * batch_size
+        # a batch's EM runs until its slowest element converges, so similar
+        # targets (by observation count) share batches; per-target results do
+        # not depend on the batch, so this is pure scheduling
+        by_difficulty = np.argsort(mask.sum(axis=1), kind="stable").astype(np.int64)
+        # the padding wraps round to the first targets
+        order = to_tensor(by_difficulty[np.arange(pad_to) % S], device, torch.int64)
+        for start in range(0, pad_to, batch_size):
+            with span("infill.batch", start // batch_size):
+                tgt = order[start : start + batch_size]
+                cols = torch.cat([tgt[:, None], preds_dev[tgt]], dim=1)  # (B, V)
+                tf, ni = _infill_batch(obs_dev, mask_dev, cols, midx_dev, n_comp,
+                                       params.max_iters, params.tol)
+                filled[tgt] = tf  # wrapped padding targets recompute identically
+                n_iters[tgt] = ni
 
-    return InfillResult(
-        filled=filled.cpu().numpy(),
-        obs_mask=mask,
-        norms=monthly_normals(filled, month_idx, device),
-        n_iters=n_iters.cpu().numpy(),
-        predictors=preds,
-        bad=bad,
-    )
+        with span("infill.fetch"):
+            filled_host, iters_host = filled.cpu().numpy(), n_iters.cpu().numpy()
+        with span("infill.normals"):
+            norms = monthly_normals(filled, month_idx, device)
+        return InfillResult(
+            filled=filled_host,
+            obs_mask=mask,
+            norms=norms,
+            n_iters=iters_host,
+            predictors=preds,
+            bad=bad,
+        )
 
 
 def monthly_normals(series, month_idx: np.ndarray, device: torch.device | str) -> np.ndarray:

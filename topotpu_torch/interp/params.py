@@ -24,6 +24,7 @@ from topotpu_torch.geo.neighbors import distance_weights, select_neighbors
 from topotpu_torch.interp.convert import to_tensor
 from topotpu_torch.kernels.wls import batched_wls, center_design
 from topotpu_torch.stats.variogram import empirical_variogram, fit_exp_variogram
+from topotpu_torch.utils.profiling import span
 
 
 class KrigParamsResult(NamedTuple):
@@ -72,22 +73,25 @@ def build_krig_params(
     Inputs are numpy arrays (or tensors) shaped like the serial station
     attributes; they are moved to ``device`` as float32 once. The result stays
     on the device (``krig_params_to_numpy`` brings it to the host)."""
-    f = lambda a: to_tensor(a, device)  # noqa: E731
-    lon, lat, elev, tdi, lst, norm = map(f, (stn_lon, stn_lat, stn_elev, stn_tdi,
-                                             stn_lst, stn_norm))
-    valid = to_tensor(stn_valid, device, torch.bool)
-    varios, sses, oks = [], [], []
-    for m in range(12):
-        dp, resid, mask = station_residuals(lon, lat, elev, tdi, valid[:, m], lst[:, m],
-                                            norm[:, m], vparams.k_fit_neighbors, iparams)
-        emp = empirical_variogram(dp, resid, mask, n_bins=vparams.n_bins,
-                                  max_dist_frac=vparams.max_dist_frac)
-        fit = fit_exp_variogram(emp, n_iters=vparams.gn_iters)
-        varios.append(torch.stack([fit.nugget, fit.psill, fit.rng], dim=-1))
-        sses.append(fit.sse)
-        oks.append(fit.ok & valid[:, m])
-    return KrigParamsResult(vario=torch.stack(varios, dim=1), sse=torch.stack(sses, dim=1),
-                            ok=torch.stack(oks, dim=1))
+    with span("params.krig_params"):
+        f = lambda a: to_tensor(a, device)  # noqa: E731
+        lon, lat, elev, tdi, lst, norm = map(f, (stn_lon, stn_lat, stn_elev, stn_tdi,
+                                                 stn_lst, stn_norm))
+        valid = to_tensor(stn_valid, device, torch.bool)
+        varios, sses, oks = [], [], []
+        for m in range(12):
+            with span("variogram.fit", m):
+                dp, resid, mask = station_residuals(lon, lat, elev, tdi, valid[:, m],
+                                                    lst[:, m], norm[:, m],
+                                                    vparams.k_fit_neighbors, iparams)
+                emp = empirical_variogram(dp, resid, mask, n_bins=vparams.n_bins,
+                                          max_dist_frac=vparams.max_dist_frac)
+                fit = fit_exp_variogram(emp, n_iters=vparams.gn_iters)
+                varios.append(torch.stack([fit.nugget, fit.psill, fit.rng], dim=-1))
+                sses.append(fit.sse)
+                oks.append(fit.ok & valid[:, m])
+        return KrigParamsResult(vario=torch.stack(varios, dim=1),
+                                sse=torch.stack(sses, dim=1), ok=torch.stack(oks, dim=1))
 
 
 def fill_failed_fits(vario: np.ndarray, ok: np.ndarray) -> np.ndarray:

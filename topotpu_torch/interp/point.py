@@ -50,6 +50,7 @@ from topotpu_torch.kernels.scatter_daily import (
     scatter_daily,
     scatter_daily_packed,
 )
+from topotpu_torch.utils.profiling import span
 
 
 class TileInputs(NamedTuple):
@@ -165,9 +166,10 @@ def tile_tables(inputs: TileInputs, all_vars) -> tuple[torch.Tensor, torch.Tenso
 def tile_neighborhoods(inputs: TileInputs, k: int, shared_validity: bool) -> list:
     """The tile's k-neighbourhoods from one exact distance matrix: one for
     every month with ``shared_validity``, else one a month."""
-    d_all = pairwise_great_circle_km(
-        inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat
-    )
+    with span("geo.distance"):
+        d_all = pairwise_great_circle_km(
+            inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat
+        )
     return [
         select_neighbors(
             inputs.cell_lon, inputs.cell_lat, inputs.stn_lon, inputs.stn_lat,

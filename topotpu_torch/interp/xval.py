@@ -45,6 +45,7 @@ from topotpu_torch.interp.point import (
     ungroup_days,
 )
 from topotpu_torch.kernels.krig_normals import cell_table, krig_normals_indexed, station_table
+from topotpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -148,49 +149,52 @@ def xval_interp_daily(
     ``k_neighbors_anom`` slots of the normals one; its covariates are (elev,
     x_km, y_km) at the pool-mean latitude, as on the tile path.
     """
-    st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
-                   stn_valid)
-    layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
-    anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
-    anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
-    ref_lat = torch.tensor(float(np.mean(np.asarray(stn_lat))), dtype=COMPUTE_DTYPE,
-                           device=st["lat"].device)
-    sx, sy = _local_xy_km(st["lon"], st["lat"], ref_lat)
-    ka = min(params.k_neighbors_anom, params.k_neighbors)
+    with span("xval.loo_daily", params.k_neighbors_anom):
+        st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
+                       stn_valid)
+        layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
+        anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
+        anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
+        ref_lat = torch.tensor(float(np.mean(np.asarray(stn_lat))), dtype=COMPUTE_DTYPE,
+                               device=st["lat"].device)
+        sx, sy = _local_xy_km(st["lon"], st["lat"], ref_lat)
+        ka = min(params.k_neighbors_anom, params.k_neighbors)
 
-    nbrs, normal, ok = _loo_normals(st, params)
-    preds = []
-    for m, nbr in enumerate(nbrs):
-        idx_a, dist_a, mask_a = nbr.idx[:, :ka], nbr.dist[:, :ka], nbr.mask[:, :ka]
-        g = anomaly_gain_rows(
-            dist_a, mask_a,
-            torch.stack([st["elev"][idx_a], sx[idx_a], sy[idx_a]], dim=-1),
-            torch.stack([st["elev"], sx, sy], dim=-1),
-            weight_kernel=params.weight_kernel, ridge=params.ridge,
-        )
-        preds.append(normal[m][:, None] + predict_daily_gathered(g, idx_a, mask_a,
-                                                                 anoms_g[m]))
-    pred_g = torch.stack(preds, dim=1).cpu().numpy()  # (S, 12, dpm)
-    oks = ok.T.cpu().numpy()
+        nbrs, normal, ok = _loo_normals(st, params)
+        preds = []
+        for m, nbr in enumerate(nbrs):
+            idx_a, dist_a, mask_a = nbr.idx[:, :ka], nbr.dist[:, :ka], nbr.mask[:, :ka]
+            g = anomaly_gain_rows(
+                dist_a, mask_a,
+                torch.stack([st["elev"][idx_a], sx[idx_a], sy[idx_a]], dim=-1),
+                torch.stack([st["elev"], sx, sy], dim=-1),
+                weight_kernel=params.weight_kernel, ridge=params.ridge,
+            )
+            preds.append(normal[m][:, None] + predict_daily_gathered(g, idx_a, mask_a,
+                                                                     anoms_g[m]))
+        with span("xval.fetch"):
+            pred_g = torch.stack(preds, dim=1).cpu().numpy()  # (S, 12, dpm)
+            oks = ok.T.cpu().numpy()
 
-    pred = ungroup_days(pred_g, layout)  # (S, T)
-    truth = np.asarray(stn_norm)[:, month_idx] + np.asarray(stn_anoms)
-    # score only stations valid and solved in every month
-    vmask = np.asarray(stn_valid, bool).all(axis=1) & oks.all(axis=1)
-    err = (pred - truth)[vmask]
-    abs_all = np.abs(pred - truth)
-    psm = abs_all.mean(axis=1)
-    mae_by_month = [
-        float(abs_all[vmask][:, month_idx == m].mean()) if err.size else float("nan")
-        for m in range(12)
-    ]
-    return {
-        "mae": float(np.abs(err).mean()) if err.size else float("nan"),
-        "bias": float(err.mean()) if err.size else float("nan"),
-        "rmse": float(np.sqrt((err**2).mean())) if err.size else float("nan"),
-        "mae_by_month": mae_by_month,
-        "per_station_mae": np.where(vmask, psm, np.nan),
-    }
+        with span("xval.score"):
+            pred = ungroup_days(pred_g, layout)  # (S, T)
+            truth = np.asarray(stn_norm)[:, month_idx] + np.asarray(stn_anoms)
+            # score only stations valid and solved in every month
+            vmask = np.asarray(stn_valid, bool).all(axis=1) & oks.all(axis=1)
+            err = (pred - truth)[vmask]
+            abs_all = np.abs(pred - truth)
+            psm = abs_all.mean(axis=1)
+            mae_by_month = [
+                float(abs_all[vmask][:, month_idx == m].mean()) if err.size else float("nan")
+                for m in range(12)
+            ]
+            return {
+                "mae": float(np.abs(err).mean()) if err.size else float("nan"),
+                "bias": float(err.mean()) if err.size else float("nan"),
+                "rmse": float(np.sqrt((err**2).mean())) if err.size else float("nan"),
+                "mae_by_month": mae_by_month,
+                "per_station_mae": np.where(vmask, psm, np.nan),
+            }
 
 
 def xval_infill(
@@ -264,35 +268,36 @@ def optimize_nnghs(
 
     Returns {"best": {region: k}, "mae": {k: (12,)}, "per_station_err":
     {k: (S, 12)}}."""
-    base = base_params or InterpParams()
-    if region_labels is None:
-        region_labels = np.zeros(len(stn_lon), int)
-    mae_by_k, err_by_k = {}, {}
-    for k in candidates:
-        sc = xval_interp_normals(
-            stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
-            stn_valid, dataclasses.replace(base, k_neighbors=int(k)), device,
-        )
-        mae_by_k[int(k)] = sc.mae
-        err_by_k[int(k)] = sc.per_station_err
+    with span("xval.sweep_normals"):
+        base = base_params or InterpParams()
+        if region_labels is None:
+            region_labels = np.zeros(len(stn_lon), int)
+        mae_by_k, err_by_k = {}, {}
+        for k in candidates:
+            sc = xval_interp_normals(
+                stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
+                stn_valid, dataclasses.replace(base, k_neighbors=int(k)), device,
+            )
+            mae_by_k[int(k)] = sc.mae
+            err_by_k[int(k)] = sc.per_station_err
 
-    best = {}
-    for r in np.unique(region_labels):
-        in_r = region_labels == r
-        # per-station MAE over its finite months first: the station is the
-        # independent unit of the 1-SE bar
-        scores = {}
-        for k, errs in err_by_k.items():
-            err = np.abs(errs[in_r])
-            fin = np.isfinite(err)
-            cnt = fin.sum(axis=1)
-            stn_mae = np.where(cnt > 0, np.where(fin, err, 0.0).sum(axis=1)
-                               / np.maximum(cnt, 1), np.nan)
-            ms = _mean_se(stn_mae)
-            if ms is not None:
-                scores[k] = ms
-        best[int(r)] = _pick_k(scores, int(base.k_neighbors), parsimony)
-    return {"best": best, "mae": mae_by_k, "per_station_err": err_by_k}
+        best = {}
+        for r in np.unique(region_labels):
+            in_r = region_labels == r
+            # per-station MAE over its finite months first: the station is the
+            # independent unit of the 1-SE bar
+            scores = {}
+            for k, errs in err_by_k.items():
+                err = np.abs(errs[in_r])
+                fin = np.isfinite(err)
+                cnt = fin.sum(axis=1)
+                stn_mae = np.where(cnt > 0, np.where(fin, err, 0.0).sum(axis=1)
+                                   / np.maximum(cnt, 1), np.nan)
+                ms = _mean_se(stn_mae)
+                if ms is not None:
+                    scores[k] = ms
+            best[int(r)] = _pick_k(scores, int(base.k_neighbors), parsimony)
+        return {"best": best, "mae": mae_by_k, "per_station_err": err_by_k}
 
 
 def optimize_nnghs_anoms(
@@ -311,28 +316,29 @@ def optimize_nnghs_anoms(
 
     Returns {"best": {region: ka}, "mae": {ka: float},
     "per_station_mae": {ka: (S,)}}."""
-    base = base_params or InterpParams()
-    if region_labels is None:
-        region_labels = np.zeros(len(stn_lon), int)
-    mae_by_k, stn_mae_by_k = {}, {}
-    for ka in candidates:
-        # the gains use a prefix of the normals neighbourhood: ka <= k
-        p = dataclasses.replace(base, k_neighbors_anom=min(int(ka), base.k_neighbors))
-        sc = xval_interp_daily(
-            stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
-            stn_valid, stn_anoms, month_idx, p, device,
-        )
-        mae_by_k[int(ka)] = sc["mae"]
-        stn_mae_by_k[int(ka)] = sc["per_station_mae"]
+    with span("xval.sweep_anoms"):
+        base = base_params or InterpParams()
+        if region_labels is None:
+            region_labels = np.zeros(len(stn_lon), int)
+        mae_by_k, stn_mae_by_k = {}, {}
+        for ka in candidates:
+            # the gains use a prefix of the normals neighbourhood: ka <= k
+            p = dataclasses.replace(base, k_neighbors_anom=min(int(ka), base.k_neighbors))
+            sc = xval_interp_daily(
+                stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
+                stn_valid, stn_anoms, month_idx, p, device,
+            )
+            mae_by_k[int(ka)] = sc["mae"]
+            stn_mae_by_k[int(ka)] = sc["per_station_mae"]
 
-    best = {}
-    for r in np.unique(region_labels):
-        in_r = region_labels == r
-        scores = {}
-        for k, stn_mae in stn_mae_by_k.items():
-            ms = _mean_se(stn_mae[in_r])
-            if ms is not None:
-                scores[k] = ms
-        best[int(r)] = _pick_k(scores, min(base.k_neighbors_anom, base.k_neighbors),
-                               parsimony)
-    return {"best": best, "mae": mae_by_k, "per_station_mae": stn_mae_by_k}
+        best = {}
+        for r in np.unique(region_labels):
+            in_r = region_labels == r
+            scores = {}
+            for k, stn_mae in stn_mae_by_k.items():
+                ms = _mean_se(stn_mae[in_r])
+                if ms is not None:
+                    scores[k] = ms
+            best[int(r)] = _pick_k(scores, min(base.k_neighbors_anom, base.k_neighbors),
+                                   parsimony)
+        return {"best": best, "mae": mae_by_k, "per_station_mae": stn_mae_by_k}

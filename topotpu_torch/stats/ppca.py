@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from topotpu_torch.utils.profiling import span
+
 # The stop test (any element still active?) reads one flag back to the host,
 # which drains the launch queue; it runs every _CHECK_EVERY iterations. An
 # iteration in which no element is active is an exact no-op, so the extra
@@ -121,25 +123,33 @@ def ppca_impute(
     X, c = Yc, torch.zeros((B, V), dtype=dtype, device=dev)
     delta = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     n_it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    # each trip's active set is computed at the end of the trip before it, so
+    # that a trip's launches all lie in its ppca.em_step span
+    active = delta > tol                                  # (B,)
+    any_active = active.any()
     for it in range(max_iters):
-        active = delta > tol                              # (B,)
-        any_active = active.any()
-        if it % _CHECK_EVERY == 0 and not bool(any_active):
-            break
-        recon, Wn, cn, sig2n = _em_step(X, W, c, sig2, T, eyeq)
-        Xn = torch.where(obs_mask, Yc, recon)
-        a3 = active[:, None, None]
-        Xn = torch.where(a3, Xn, X)
-        W = torch.where(a3, Wn, W)
-        c = torch.where(active[:, None], cn, c)
-        sig2 = torch.where(active, sig2n, sig2)
-        num = torch.sqrt((Xn - X).square().mean(dim=(-2, -1)))
-        den = torch.sqrt(Xn.square().mean(dim=(-2, -1)) + 1e-12)
-        # a frozen element's delta goes to 0 as in the JAX loop, but only in
-        # an iteration that loop would have run (some element active)
-        delta = torch.where(active, num / den, torch.where(any_active, 0.0, delta))
-        n_it = n_it + active.to(torch.int32)
-        X = Xn
+        if it % _CHECK_EVERY == 0:
+            with span("ppca.sync"):
+                stop = not bool(any_active)
+            if stop:
+                break
+        with span("ppca.em_step"):
+            recon, Wn, cn, sig2n = _em_step(X, W, c, sig2, T, eyeq)
+            Xn = torch.where(obs_mask, Yc, recon)
+            a3 = active[:, None, None]
+            Xn = torch.where(a3, Xn, X)
+            W = torch.where(a3, Wn, W)
+            c = torch.where(active[:, None], cn, c)
+            sig2 = torch.where(active, sig2n, sig2)
+            num = torch.sqrt((Xn - X).square().mean(dim=(-2, -1)))
+            den = torch.sqrt(Xn.square().mean(dim=(-2, -1)) + 1e-12)
+            # a frozen element's delta goes to 0 as in the JAX loop, but only
+            # in an iteration that loop would have run (some element active)
+            delta = torch.where(active, num / den, torch.where(any_active, 0.0, delta))
+            n_it = n_it + active.to(torch.int32)
+            X = Xn
+            active = delta > tol
+            any_active = active.any()
 
     recon, W, c, sig2 = _em_step(X, W, c, sig2, T, eyeq)
     recon_full = recon + mu[:, None, :]
