@@ -25,6 +25,9 @@ percentile, within 50 % + 1e-4 C. Monthly MAE, bias and R^2 within
 the same k.
 """
 
+import types
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,7 @@ from topotpu.io.synthetic import make_world
 from topotpu.oracle.pipeline import interp_cell_month
 from topotpu_torch.geo.neighbors import select_neighbors
 from topotpu_torch.interp import xval as txval
+from topotpu_torch.interp.point import group_days_by_month, month_layout, ungroup_days
 from topotpu_torch.io.synthetic import station_arrays_from_world
 
 torch.set_num_threads(1)
@@ -219,3 +223,112 @@ def test_loo_twin_enters_the_neighbourhood(st):
     got_d = txval.xval_interp_daily(*twin.krig(), twin.anoms, twin.month_idx, params, "cpu")
     want_d = jxval.xval_interp_daily(*twin.krig(), twin.anoms, twin.month_idx, params)
     _assert_daily_close(got_d, want_d)
+
+
+# ------------------------------------------- the daily scoring on the device
+
+
+def _numpy_daily_scores(pred_g, layout, stn_norm, stn_anoms, month_idx, stn_valid, oks):
+    """The daily LOO scores as numpy computed them before the scoring moved to
+    the device: the (S, 12, dpm) predictions ungrouped, the truth rebuilt in
+    calendar order, the per-month column means over the scored stations."""
+    pred = ungroup_days(pred_g, layout)  # (S, T)
+    truth = stn_norm[:, month_idx] + stn_anoms
+    vmask = stn_valid.all(axis=1) & oks.all(axis=1)
+    err = (pred - truth)[vmask]
+    abs_all = np.abs(pred - truth)
+    psm = abs_all.mean(axis=1)
+    mae_by_month = [
+        float(abs_all[vmask][:, month_idx == m].mean()) if err.size else float("nan")
+        for m in range(12)
+    ]
+    return {
+        "mae": float(np.abs(err).mean()) if err.size else float("nan"),
+        "bias": float(err.mean()) if err.size else float("nan"),
+        "rmse": float(np.sqrt((err**2).mean())) if err.size else float("nan"),
+        "mae_by_month": mae_by_month,
+        "per_station_mae": np.where(vmask, psm, np.nan),
+    }
+
+
+@pytest.mark.parametrize("case", ["clean", "invalid_month", "failed_solve", "nan_normal",
+                                  "pad_garbage", "none_scorable"])
+def test_score_daily_matches_the_numpy_scoring(case):
+    """``_score_daily`` (torch, month-grouped, one fetch) against the former
+    numpy formula on the same random predictions, within 1e-5 C, NaN where
+    numpy gives NaN, with the same return types."""
+    rng = np.random.default_rng(5)
+    S = 40
+    # 14 months from a leap-year January: two Januaries fill the 62 slots of
+    # a month, so every other month has pad slots
+    month_idx = (np.arange("2000-01-01", "2001-03-01", dtype="datetime64[D]")
+                 .astype("datetime64[M]").astype(int) % 12)
+    layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
+    norm = rng.normal(10.0, 8.0, (S, 12)).astype(np.float32)
+    anoms = rng.normal(0.0, 3.0, (S, len(month_idx))).astype(np.float32)
+    valid = np.ones((S, 12), bool)
+    ok = np.ones((12, S), bool)
+    truth_g = group_days_by_month(norm[:, month_idx] + anoms, layout)  # (S, 12, dpm)
+    pred_g = (truth_g + rng.normal(0.2, 1.0, truth_g.shape)).astype(np.float32)
+    anoms_g = np.moveaxis(group_days_by_month(anoms, layout), 1, 0).copy()  # (12, S, dpm)
+    if case == "invalid_month":
+        valid[3, 5] = False
+    elif case == "failed_solve":
+        ok[2, 7] = False
+        pred_g[7, 2] = np.nan  # a failed solve's prediction reaches no sum
+    elif case == "nan_normal":
+        norm[4, 1] = np.nan  # a scored station's truth: NaN propagates, as in numpy
+    elif case == "pad_garbage":
+        pads = ~layout.day_valid
+        pred_g[:, pads] = np.nan
+        pred_g[::2, pads] = 1e30
+        anoms_g = np.where(pads[:, None], np.float32(np.nan), anoms_g)
+    elif case == "none_scorable":
+        ok[:, ::2] = False
+        valid[1::2, 0] = False
+    want_vmask = valid.all(1) & ok.all(0)
+    assert want_vmask.any() == (case != "none_scorable")
+    if case == "nan_normal":
+        assert want_vmask[4]
+
+    T = torch.from_numpy
+    got = txval._score_daily(list(T(np.moveaxis(pred_g, 1, 0).copy())), T(norm), T(anoms_g),
+                             T(valid), T(ok), T(layout.day_valid))
+    with warnings.catch_warnings():  # numpy's mean of nothing, where nothing is scored
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = _numpy_daily_scores(pred_g, layout, norm, anoms, month_idx, valid, ok.T)
+
+    assert set(got) == {"mae", "bias", "rmse", "mae_by_month", "per_station_mae"}
+    for f in ("mae", "bias", "rmse"):
+        assert type(got[f]) is float, f
+        np.testing.assert_allclose(got[f], want[f], rtol=0, atol=1e-5, err_msg=f)
+    assert isinstance(got["mae_by_month"], list) and len(got["mae_by_month"]) == 12
+    assert all(type(v) is float for v in got["mae_by_month"])
+    np.testing.assert_allclose(got["mae_by_month"], want["mae_by_month"], rtol=0, atol=1e-5)
+    psm = got["per_station_mae"]
+    assert isinstance(psm, np.ndarray) and psm.shape == (S,)
+    assert np.issubdtype(psm.dtype, np.floating)
+    np.testing.assert_allclose(psm, want["per_station_mae"], rtol=0, atol=1e-5)
+    if case == "nan_normal":
+        assert np.isnan(got["mae"]) and np.isnan(got["mae_by_month"][1]) and np.isnan(psm[4])
+        assert np.isfinite(got["mae_by_month"][0]) and np.isfinite(np.delete(psm, 4)).all()
+    if case == "none_scorable":
+        assert np.isnan([got["mae"], got["bias"], got["rmse"], *got["mae_by_month"]]).all()
+        assert np.isnan(psm).all()
+
+
+def test_xval_interp_daily_fetches_once(st, monkeypatch):
+    """The daily x-val brings its results to the host in one transfer of the
+    (S,) per-station MAEs and 15 scalars."""
+    sizes = []
+    cpu = torch.Tensor.cpu
+
+    def counted(self, *a, **kw):
+        sizes.append(self.numel())
+        return cpu(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counted)
+    got = txval.xval_interp_daily(*st.krig(), st.anoms, st.month_idx,
+                                  InterpParams(k_neighbors=16, k_neighbors_anom=8), "cpu")
+    assert sizes == [len(st.lon) + 15]
+    assert np.isfinite(got["mae"]) and got["per_station_mae"].shape == (len(st.lon),)

@@ -20,8 +20,11 @@ in the JAX package. The 12 months' normals run through one call of
 ``kernels.krig_normals.krig_normals_indexed`` (the CUDA ``krig_normals``
 kernel on the card, one launch per x-val run), the stations being both the
 station table's rows and the cells. Inputs are numpy station arrays; they go
-to ``device`` once, the results stay there, and one transfer brings them
-back for the numpy scoring, which is the JAX package's.
+to ``device`` once and the results stay there. The normals' x-val brings its
+(S, 12) errors back for the numpy scoring, which is the JAX package's; the
+daily x-val scores its predictions on ``device`` in their month-grouped
+layout (``_score_daily``) and brings back only the per-station MAEs and 15
+scalars, in one transfer.
 """
 
 from __future__ import annotations
@@ -38,12 +41,7 @@ from topotpu_torch.geo.distance import unit_xyz
 from topotpu_torch.geo.neighbors import select_neighbors
 from topotpu_torch.interp.anoms import anomaly_gain_rows, predict_daily_gathered
 from topotpu_torch.interp.convert import to_tensor
-from topotpu_torch.interp.point import (
-    _local_xy_km,
-    group_days_by_month,
-    month_layout,
-    ungroup_days,
-)
+from topotpu_torch.interp.point import _local_xy_km, group_days_by_month, month_layout
 from topotpu_torch.kernels.krig_normals import cell_table, krig_normals_indexed, station_table
 from topotpu_torch.utils.profiling import span
 
@@ -172,29 +170,54 @@ def xval_interp_daily(
             )
             preds.append(normal[m][:, None] + predict_daily_gathered(g, idx_a, mask_a,
                                                                      anoms_g[m]))
-        with span("xval.fetch"):
-            pred_g = torch.stack(preds, dim=1).cpu().numpy()  # (S, 12, dpm)
-            oks = ok.T.cpu().numpy()
+        return _score_daily(preds, st["norm"], anoms_g, st["valid"], ok,
+                            to_tensor(layout.day_valid, device, torch.bool))
 
-        with span("xval.score"):
-            pred = ungroup_days(pred_g, layout)  # (S, T)
-            truth = np.asarray(stn_norm)[:, month_idx] + np.asarray(stn_anoms)
-            # score only stations valid and solved in every month
-            vmask = np.asarray(stn_valid, bool).all(axis=1) & oks.all(axis=1)
-            err = (pred - truth)[vmask]
-            abs_all = np.abs(pred - truth)
-            psm = abs_all.mean(axis=1)
-            mae_by_month = [
-                float(abs_all[vmask][:, month_idx == m].mean()) if err.size else float("nan")
-                for m in range(12)
-            ]
-            return {
-                "mae": float(np.abs(err).mean()) if err.size else float("nan"),
-                "bias": float(err.mean()) if err.size else float("nan"),
-                "rmse": float(np.sqrt((err**2).mean())) if err.size else float("nan"),
-                "mae_by_month": mae_by_month,
-                "per_station_mae": np.where(vmask, psm, np.nan),
-            }
+
+def _score_daily(preds, norm, anoms_g, valid, ok, day_valid) -> dict:
+    """The daily LOO scores, on the predictions' device and in their
+    month-grouped layout: ``preds`` the 12 months' (S, dpm) predictions,
+    ``norm`` (S, 12) stored normals, ``anoms_g`` (12, S, dpm) anomalies (the
+    truth is normal + anomaly), ``valid`` (S, 12) and ``ok`` (12, S) flags,
+    ``day_valid`` (12, dpm) the slots that hold a day.
+
+    Only stations valid and solved in every month are scored, over the days
+    ``day_valid`` marks; both masks select (``torch.where``), so nothing in a
+    pad slot or an unscored station reaches a sum, while a NaN truth of a
+    scored station propagates (plain sums). The errors are float32, their sums
+    float64. One transfer brings back the (S,) sums and the 15 scalars.
+    Returns MAE, bias and RMSE (floats), ``mae_by_month`` (12 floats) and
+    ``per_station_mae`` ((S,) numpy, NaN where unscored); NaN with no scored
+    station."""
+    with span("xval.score"):
+        f64 = torch.float64
+        vmask = valid.all(1) & ok.all(0)  # (S,)
+        rows = []
+        for m in range(12):
+            e = preds[m] - (norm[:, m, None] + anoms_g[m])
+            e = torch.where(day_valid[m], e, 0.0).to(f64)
+            rows.append(torch.stack([e.abs().sum(1), e.sum(1), (e * e).sum(1)]))
+        rows = torch.stack(rows)  # (12, 3, S): |e|, e, e^2 summed over each month's days
+        days = day_valid.sum(1).to(f64)  # (12,)
+        n_days = days.sum()
+        scored = torch.where(vmask, rows, 0.0).sum(-1)  # (12, 3)
+        total = scored.sum(0) / (vmask.sum() * n_days)
+        packed = torch.cat([
+            torch.where(vmask, rows[:, 0].sum(0) / n_days, torch.nan),
+            scored[:, 0] / (vmask.sum() * days),
+            total[:2], total[2:].sqrt(),
+        ])
+    with span("xval.fetch"):
+        host = packed.cpu().numpy()
+    S = len(host) - 15
+    mae, bias, rmse = (float(v) for v in host[S + 12:])
+    return {
+        "mae": mae,
+        "bias": bias,
+        "rmse": rmse,
+        "mae_by_month": [float(v) for v in host[S:S + 12]],
+        "per_station_mae": host[:S],
+    }
 
 
 def xval_infill(
