@@ -442,6 +442,90 @@ def test_a_stage_with_trace_writes_the_trace_and_its_spans(runs, tmp_path):
     assert ranges.count("params.krig_params") == 2 and ranges.count("variogram.fit") == 24
 
 
+def test_trace_in_a_job_of_several_processes_writes_a_file_a_rank(runs, tmp_path):
+    """``interp --trace DIR`` started once a process of a two-process job:
+    each process writes its own trace and span file, named by its
+    ``--process-id``, with its rendezvous span keyed by its index; neither
+    overwrites the other's."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    cfg = _copy(runs["port"][0], tmp_path, "ranks")
+    data = pathlib.Path(TopoConfig.load(cfg).data_dir)
+    shutil.rmtree(data / "tiles")
+    for f in data.glob("mosaic_*"):
+        f.unlink()
+    trace = tmp_path / "trace"
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    sock.listen()
+    coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, TOPOTPU_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    procs = []
+    try:
+        for i in range(2):
+            fd = {multihost.COORDINATOR_FD_ENV: str(sock.fileno())} if i == 0 else {}
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "topotpu_torch.cli", "interp", "--config", str(cfg),
+                 "--trace", str(trace), "--coordinator", coordinator, "--num-processes", "2",
+                 "--process-id", str(i)],
+                cwd=pathlib.Path(__file__).resolve().parents[1], env=dict(env, **fd),
+                pass_fds=(sock.fileno(),) if i == 0 else (), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [proc.communicate(timeout=120)[0] for proc in procs]
+    finally:
+        sock.close()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for i, (proc, out) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, f"process {i} exited {proc.returncode}:\n{out[-3000:]}"
+    assert sorted(f.name for f in trace.iterdir()) == [
+        "spans_p000.json", "spans_p001.json", "trace_p000.json", "trace_p001.json"]
+    for i in range(2):
+        spans = json.loads((trace / f"spans_p{i:03d}.json").read_text())["spans"]
+        assert [sp["key"] for sp in spans if sp["name"] == "multihost.init"] == [i]
+        events = json.loads((trace / f"trace_p{i:03d}.json").read_text())["traceEvents"]
+        assert "multihost.init" in {e["name"] for e in events if e.get("cat") == "user_annotation"}
+
+
+def test_a_rank_takes_its_card_before_its_trace_opens(monkeypatch, tmp_path):
+    """A process of a job over several processes makes its share of the
+    host's GPUs current (``multihost.local_devices``, given its
+    ``--process-id`` and ``--num-processes``) before ``--trace`` starts the
+    profiler, which opens a context on the current device; a one-process
+    run and a host-only stage take no card."""
+    import contextlib
+
+    from topotpu_torch.utils import profiling
+
+    calls = []
+
+    @contextlib.contextmanager
+    def trace(log_dir, tag=""):
+        calls.append(("trace", tag))
+        yield []
+
+    monkeypatch.setattr(multihost, "local_devices", lambda i, n: calls.append(("card", i, n)))
+    monkeypatch.setattr(profiling, "device_trace", trace)
+    monkeypatch.setattr(tmain, "_stages", lambda ap, args: calls.append(("stages",)) or 0)
+    job = ["--coordinator", "127.0.0.1:1", "--num-processes", "4", "--process-id", "1"]
+    assert tmain.main(["interp", *job, "--trace", str(tmp_path)]) == 0
+    assert calls == [("card", 1, 4), ("trace", "_p001"), ("stages",)]
+    calls.clear()
+    assert tmain.main(["interp", *job]) == 0
+    assert calls == [("card", 1, 4), ("stages",)]
+    calls.clear()
+    assert tmain.main(["interp", "--trace", str(tmp_path)]) == 0
+    assert calls == [("trace", ""), ("stages",)]
+    calls.clear()
+    assert tmain.main(["mosaic", *job]) == 0
+    assert calls == [("stages",)]
+
+
 def test_point_rejects_out_of_grid_sites(tmp_path):
     cfg = TopoConfig(data_dir=str(tmp_path / "data"), start_date="2015-01-01",
                      end_date="2015-01-31", tile_rows=24, tile_cols=24)

@@ -45,13 +45,13 @@ class _Engine(TileEngine):
     PIPELINE_DEPTH = 1  # a fetch pool of 5 buffers: fewer than a chunk's takes
 
 
-def _run(out, device, mesh=None):
+def _run(out, device, mesh=None, engine=_Engine):
     world, days, rasters, a, b = engine_inputs(64, 80, "2015-01-01", "2017-12-31", seed=3)
     cfg = TopoConfig(tile_rows=32, tile_cols=32,
                      interp=InterpParams(k_neighbors=16, max_tile_stations=64))
     mosaics = {v: out / f"mosaic_{v}.h5" for v in ("tmin", "tmax")}
-    eng = _Engine(cfg, rasters, days, out / "tiles", device=device, mosaic_paths=mosaics,
-                  k_table={2: {"tmin": (12, 8), "tmax": (16, 12)}}, mesh=mesh)
+    eng = engine(cfg, rasters, days, out / "tiles", device=device, mosaic_paths=mosaics,
+                 k_table={2: {"tmin": (12, 8), "tmax": (16, 12)}}, mesh=mesh)
     counts = eng.run_production_pair("tmin", "tmax", a, b, years_per_chunk=1, progress=False)
     assert counts == {"tmin": 12, "tmax": 12}
     store = {v: MemoryMosaic.STORE.pop(p) for v, p in mosaics.items()}
@@ -111,3 +111,77 @@ def test_two_shard_mesh_on_the_card_equals_one_device(dev, tmp_path):
         for key in ("daily", "normal", "se"):
             np.testing.assert_array_equal(two[var][key], one[var][key])
         assert two[var]["attrs"] == one[var]["attrs"]
+
+
+def test_engine_on_a_second_card_stays_on_it(tmp_path, monkeypatch):
+    """An engine whose mesh is ``cuda:1``, run while ``cuda:0`` is the
+    current device (a rank of a job over several processes that takes the
+    second card, as ``local_mesh`` gives it), records every event behind
+    its copies on ``cuda:1``'s stream and writes what the engine on
+    ``cuda:0`` writes, bit for bit. An event recorded on the current
+    device's stream completes before the copy it stands for, and the writer
+    may read a buffer mid-copy."""
+    from topotpu_torch.dist.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    first, second = torch.device("cuda", 0), torch.device("cuda", 1)
+    _, want, man_want = _run(tmp_path / "first", first)
+    recorded_on = []
+    record = torch.cuda.Event.record
+
+    def spy(self, stream=None):
+        recorded_on.append((torch.cuda.current_stream() if stream is None else stream).device)
+        return record(self, stream)
+
+    monkeypatch.setattr(torch.cuda.Event, "record", spy)
+    torch.cuda.set_device(first)
+    eng, got, man_got = _run(tmp_path / "second", None, mesh=make_mesh(devices=[second]))
+    assert torch.cuda.current_device() == 0 and eng.device == second
+    assert recorded_on and set(recorded_on) == {second}
+    assert man_got == man_want
+    for var in ("tmin", "tmax"):
+        for key in ("daily", "normal", "se"):
+            np.testing.assert_array_equal(got[var][key], want[var][key])
+        assert got[var]["attrs"] == want[var]["attrs"]
+
+
+def test_a_traced_rank_on_the_second_card_holds_a_context_there_only(tmp_path):
+    """A fresh process that is rank 1 of a job with one card a rank does
+    what the CLI's ``interp --trace`` does: it takes its card
+    (``multihost.local_devices``) before the profiler starts, then runs the
+    engine on the mesh ``local_mesh`` gives it. It then holds a CUDA
+    context on ``cuda:1`` and on no other card: a profiler started, or a
+    buffer pinned, while ``cuda:0`` was current would open one there."""
+    import json
+    import os
+    import subprocess
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    tests = str(pathlib.Path(__file__).resolve().parent)
+    code = f"""
+import json, pathlib, sys
+sys.path[:0] = [{tests!r}]
+import torch
+import test_torch_cuda_engine as t
+from topotpu_torch.dist import multihost
+from topotpu_torch.utils.profiling import device_trace
+
+multihost.local_devices(1, torch.cuda.device_count())
+out = pathlib.Path({str(tmp_path)!r})
+with device_trace(out / "trace", "_p001"):
+    eng, _, manifests = t._run(out / "rank", None)
+torch.cuda.synchronize()
+held = [i for i in range(torch.cuda.device_count()) if torch._C._cuda_hasPrimaryContext(i)]
+print(json.dumps(dict(device=str(eng.device), current=torch.cuda.current_device(),
+                      contexts=held, chunks=len(manifests))))
+"""
+    env = dict(os.environ, LOCAL_WORLD_SIZE=str(torch.cuda.device_count()), LOCAL_RANK="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == dict(device="cuda:1", current=1, contexts=[1], chunks=3)
+    assert sorted(f.name for f in (tmp_path / "trace").iterdir()) == [
+        "spans_p001.json", "trace_p001.json"]

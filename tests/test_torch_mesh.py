@@ -280,13 +280,22 @@ def test_global_mesh_and_coordinator_in_one_process(monkeypatch):
     (2, {}, (2, 3), [0]),                                          # fewer cards than ranks
 ])
 def test_local_mesh_takes_this_processs_share(monkeypatch, gpus, env, rank_world, want):
+    """The share of the process's place in the group (or of the launcher's
+    local rank), and a share of one card made current: that of
+    ``local_mesh`` and, before the group has formed, that of
+    ``local_devices`` given the place."""
     monkeypatch.delenv("TOPOTPU_PLATFORM", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
+    current = []
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
+    assert [d.index for d in multihost.local_devices(*(rank_world or (0, 1)))] == want
     if rank_world is not None:
         monkeypatch.setattr(multihost, "_group_size", lambda: rank_world[1])
         monkeypatch.setattr(multihost.dist, "get_rank", lambda: rank_world[0])
     assert [d.index for d in multihost.local_mesh().devices] == want
     assert len(multihost.local_mesh(1).devices) == 1
+    made = [torch.device("cuda", want[0])] if len(want) == 1 else []
+    assert current == made * 3

@@ -121,11 +121,11 @@ def _launch(argvs_of_rank):
     return outs
 
 
-def _cli_interp(cfg_path, *extra):
+def _cli_interp(cfg_path, *extra, n=2):
     def argvs(coordinator):
         return [["-m", "topotpu_torch.cli", "interp", "--config", str(cfg_path), *extra,
-                 "--coordinator", coordinator, "--num-processes", "2", "--process-id", str(i)]
-                for i in range(2)]
+                 "--coordinator", coordinator, "--num-processes", str(n), "--process-id", str(i)]
+                for i in range(n)]
     return _launch(argvs)
 
 
@@ -156,20 +156,23 @@ def _rig(tmp, cfg):
     return data, tmp / "cfg.json"
 
 
-def _manifest_parts(tiles):
+def _manifest_parts(tiles, n=2):
     return [json.loads((tiles / f"manifest_p{i:03d}.json").read_text())["tiles"]
-            for i in range(2)]
+            for i in range(n)]
 
 
-def _check_strided(tiles, rasters, cfg):
-    m0, m1 = _manifest_parts(tiles)
-    assert m0 and m1 and not set(m0) & set(m1)
-    assert all(int(k.split("_")[1]) % 2 == 0 for k in m0)
-    assert all(int(k.split("_")[1]) % 2 == 1 for k in m1)
+def _check_strided(tiles, rasters, cfg, n=2):
+    """Each of the ``n`` processes' manifests holds its strided tiles only,
+    and together they hold every land tile once; returns them."""
+    parts = _manifest_parts(tiles, n)
+    assert all(parts)
+    assert sum(len(m) for m in parts) == len(set().union(*parts))
+    for i, m in enumerate(parts):
+        assert all(int(k.split("_")[1]) % n == i for k in m)
     land = [t.tile_id for t in Tiling(rasters.grid, cfg.tile_rows,
                                       cfg.tile_cols).land_tiles(rasters.landmask)]
-    assert set(m0) | set(m1) == {f"{v}_{t:05d}" for v in VARS for t in land}
-    return m0, m1
+    assert set().union(*parts) == {f"{v}_{t:05d}" for v in VARS for t in land}
+    return parts
 
 
 def _mosaics_equal(a, b, n_days):
@@ -247,23 +250,29 @@ def test_two_process_direct_mosaic_virtual_master(direct_run, tmp_path, monkeypa
     _mosaics_equal(run, single, 59)
 
 
-def test_two_process_chunked_direct_mosaic(tmp_path, monkeypatch):
-    """Two processes x one-year chunks x direct: full-span shards written a
-    chunk at a time, strided ownership in every chunk's manifests, and
-    masters equal to the one-process chunked direct run bit for bit."""
+@pytest.mark.parametrize("n", [2, 4])
+def test_two_process_chunked_direct_mosaic(tmp_path, monkeypatch, n):
+    """Two (and four) processes x one-year chunks x direct: full-span shards
+    written a chunk at a time, each stamped with its own index and the
+    process count, strided ownership in every chunk's manifests, and masters
+    equal to the one-process chunked direct run bit for bit."""
     cfg = _config(tmp_path / "data", start="2014-01-01", end="2015-12-31")
     data, cfg_path = _rig(tmp_path, cfg)
-    _cli_interp(cfg_path, "--chunk-years", "1")
+    _cli_interp(cfg_path, "--chunk-years", "1", n=n)
     rasters = RasterStack.load(data / "rasters.h5")
     chunks = sorted((data / "tiles").glob("chunk_*_*"))
     assert [d.name for d in chunks] == ["chunk_2014_2014", "chunk_2015_2015"]
     for d in chunks:
-        _check_strided(d, rasters, cfg)
+        _check_strided(d, rasters, cfg, n)
         assert not list(d.glob("*_tile*.h5"))
+    land = [t.tile_id for t in Tiling(rasters.grid, 8, 8).land_tiles(rasters.landmask)]
     for var in VARS:
-        for i in range(2):
+        for i in range(n):
             with h5py.File(data / f"mosaic_{var}_p{i:03d}.h5") as f:
                 assert f[var].shape[0] == 730 and bool(f.attrs["complete"])
+                assert int(f.attrs["process_index"]) == i
+                assert int(f.attrs["process_count"]) == n
+                assert int(f.attrs["n_tiles"]) == sum(t % n == i for t in land)
     res = tsteps.step_mosaic(cfg)
     assert res[C.TMIN] == res[C.TMAX] > 0
     val = tsteps.step_validate(cfg)

@@ -35,6 +35,8 @@ Several processes: start ``interp`` once a process, each with
 serves the rendezvous (``torch.distributed``, gloo) at that address. Each
 interpolates the tiles with ``tile_id % N == i``; then one ``mosaic`` run
 merges the manifests and publishes the mosaic over the processes' shards.
+A process whose share of the host's GPUs is one card
+(``dist.multihost.local_devices``) makes it current before any CUDA work.
 
 The artifacts are the JAX package's (``python -m topotpu.cli``), so either
 CLI reads, resumes and finishes a data_dir that the other wrote.
@@ -143,12 +145,23 @@ def main(argv=None) -> int:
                     help="profile the stage and record its spans: DIR gets "
                          "trace.json (the torch.profiler Chrome trace) and "
                          "spans.json (every thread's spans on the trace's "
-                         "clock); default off")
+                         "clock); in a job of several processes each gets "
+                         "its own, trace_pNNN.json and spans_pNNN.json, "
+                         "NNN its --process-id; default off")
     args = ap.parse_args(argv)
+    several = (args.num_processes or 1) > 1
+    if (several and args.coordinator and args.process_id is not None
+            and args.stage in ("interp", "all")):
+        from topotpu_torch.dist.multihost import local_devices
+
+        # the rank's card current before any CUDA work, the profiler's start
+        # included: the process then opens a context on no other card
+        local_devices(args.process_id, args.num_processes)
     if args.trace:
         from topotpu_torch.utils.profiling import device_trace
 
-        with device_trace(args.trace):
+        tag = f"_p{args.process_id or 0:03d}" if several else ""
+        with device_trace(args.trace, tag):
             return _stages(ap, args)
     return _stages(ap, args)
 

@@ -127,7 +127,10 @@ class _Staging:
     another one) has a ring of ``depth`` buffers, allocated at first use; a
     buffer is written again only after the event recorded behind its last
     copy has completed, so a later tile's prepare never overwrites inputs the
-    device has not read yet."""
+    device has not read yet. The buffers are pinned, and the copy and its
+    event issued, under ``device`` whatever device is current: an event
+    recorded on another card's stream would complete before the copy it
+    stands for, and a pinned allocation would open a context there."""
 
     ALIGN = 64  # bytes; every field starts on a multiple
 
@@ -153,7 +156,7 @@ class _Staging:
         n = self._uses.get(layout, 0)
         self._uses[layout] = n + 1
         if len(ring) < self.depth:
-            with span("engine.pin_alloc"):
+            with span("engine.pin_alloc"), torch.cuda.device(self.device):
                 ring.append([torch.empty(total, dtype=torch.uint8, pin_memory=True), None])
         slot = ring[n % self.depth]
         host, copied = slot
@@ -163,9 +166,10 @@ class _Staging:
         raw = host.numpy()
         for a, off in zip(fields.values(), offsets):
             raw[off : off + a.nbytes].view(a.dtype).reshape(a.shape)[...] = a
-        dev = host.to(self.device, non_blocking=True)
-        slot[1] = torch.cuda.Event()
-        slot[1].record()
+        with torch.cuda.device(self.device):
+            dev = host.to(self.device, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(torch.cuda.current_stream(self.device))
         return {
             name: dev[off : off + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(a.shape)
             for (name, a), off in zip(fields.items(), offsets)
@@ -179,8 +183,9 @@ class _PinnedPool:
     memory takes milliseconds); ``take`` waits while all of them are out,
     which is the pipeline's back-pressure."""
 
-    def __init__(self, cap: int):
+    def __init__(self, cap: int, device: torch.device):
         self.cap = cap
+        self.device = device  # the card whose products the buffers receive
         self.allocated: dict = {}  # key -> buffers made
         self._free: dict = {}      # key -> buffers not in use
         self._cond = threading.Condition()
@@ -205,7 +210,7 @@ class _PinnedPool:
                     break
                 with span("engine.buffer_wait"):
                     self._cond.wait()
-        with span("engine.pin_alloc"):
+        with span("engine.pin_alloc"), torch.cuda.device(self.device):
             return [torch.empty(shape, dtype=dt, pin_memory=True) for shape, dt in key]
 
     def give(self, key, bufs: list) -> None:
@@ -219,7 +224,8 @@ class _InFlight:
     host buffers from ``pool``: the copies are enqueued behind the step with
     an event after them. ``wait`` blocks on the event and returns the product
     as numpy views of the buffers; ``release`` hands the buffers back, once
-    the writer is done with them."""
+    the writer is done with them. The buffers, the copies and the event are
+    made under the pool's device, as ``_Staging`` makes its own."""
 
     def __init__(self, result, pool: _PinnedPool):
         self.kind = type(result)
@@ -228,10 +234,11 @@ class _InFlight:
         self.key = tuple((tuple(f.shape), f.dtype) for f in fields)
         self.pool = pool
         self.bufs = pool.take(self.key)
-        for buf, f in zip(self.bufs, fields):
-            buf.copy_(f, non_blocking=True)
-        self.copied = torch.cuda.Event()
-        self.copied.record()
+        with torch.cuda.device(pool.device):
+            for buf, f in zip(self.bufs, fields):
+                buf.copy_(f, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(pool.device))
 
     def wait(self):
         self.copied.synchronize()
@@ -351,7 +358,7 @@ class TileEngine:
         # staging ring and the fetch buffers, as many as the pipeline holds
         # tiles (PIPELINE_DEPTH a queue, one in each of the three threads)
         self._staging = _Staging(self.device, self.PIPELINE_DEPTH)
-        self._fetch_pool = _PinnedPool(2 * self.PIPELINE_DEPTH + 3)
+        self._fetch_pool = _PinnedPool(2 * self.PIPELINE_DEPTH + 3, self.device)
 
     # ------------------------------------------------------- step functions
     def _step_fn(self, params, shared: bool):

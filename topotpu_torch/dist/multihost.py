@@ -14,6 +14,11 @@ CPU scalars and barriers (the scales of a mesh that spans processes, the end
 of a stage); no device data crosses processes in production, so no GPU
 collective library is needed, and the same group forms on machines without a
 GPU. A one-process job makes no group at all.
+
+Spans (``utils.profiling``): ``multihost.init`` (the rendezvous, keyed by
+the process index), ``multihost.barrier`` (a wait at a sync point of a job
+over several processes, keyed by the point's name) and
+``multihost.merge_manifests`` (keyed by the directory's name).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.distributed as dist
 
 from topotpu_torch.core.device import platform_devices
 from topotpu_torch.dist.mesh import CellMesh, make_mesh
+from topotpu_torch.utils.profiling import span
 
 # A listening socket that this process inherited, bound to the coordinator's
 # port: process 0 serves the rendezvous on it instead of binding the port
@@ -84,12 +90,13 @@ def init_multihost(
     if not host or not port.isdigit():
         raise ValueError(f"coordinator address {coordinator_address!r} is not host:port")
     fd = os.environ.get(COORDINATOR_FD_ENV) if process_id == 0 else None
-    store = dist.TCPStore(
-        host, int(port), num_processes, process_id == 0, RENDEZVOUS_TIMEOUT,
-        master_listen_fd=None if fd is None else int(fd),
-    )
-    dist.init_process_group("gloo", store=store, rank=process_id, world_size=num_processes,
-                            timeout=RENDEZVOUS_TIMEOUT)
+    with span("multihost.init", process_id):
+        store = dist.TCPStore(
+            host, int(port), num_processes, process_id == 0, RENDEZVOUS_TIMEOUT,
+            master_listen_fd=None if fd is None else int(fd),
+        )
+        dist.init_process_group("gloo", store=store, rank=process_id,
+                                world_size=num_processes, timeout=RENDEZVOUS_TIMEOUT)
     return MultihostContext(process_index=dist.get_rank(), process_count=dist.get_world_size())
 
 
@@ -102,10 +109,11 @@ def partition_tiles(tiles: Iterable, ctx: MultihostContext) -> list:
     return [t for t in tiles if ctx.owns_tile(t.tile_id)]
 
 
-def local_mesh(n_devices: int = 0) -> CellMesh:
-    """This process's mesh: its share of the devices it sees, the first
-    ``n_devices`` of them where given. The engine's step reduces nothing
-    across processes, so this mesh never spans them.
+def local_devices(process_index: int | None = None,
+                  process_count: int | None = None) -> list:
+    """This process's share of the devices it sees: that of process
+    ``process_index`` of ``process_count``, by default this process's place
+    in the process group.
 
     Every process of a job on one machine sees every GPU of it, so the
     processes split them: the processes that share this machine are counted
@@ -115,16 +123,31 @@ def local_mesh(n_devices: int = 0) -> CellMesh:
     and L such processes, local rank r takes devices [r * G / L, (r + 1) * G
     / L); with fewer devices than processes, ranks share, and local rank r
     takes device r % G (on one card every process takes ``cuda:0``). Under
-    ``TOPOTPU_PLATFORM=cpu`` the mesh is the CPU."""
+    ``TOPOTPU_PLATFORM=cpu`` the share is the CPU.
+
+    A share of one card becomes the process's current device: CUDA work
+    that names no device (a profiler's start, a pinned allocation) then
+    lands there, and the process opens no context on another card. Call it
+    before any such work."""
     devices = platform_devices()
     if devices[0].type == "cuda":
-        world = _group_size()
-        rank = dist.get_rank() if world > 1 else 0
+        world = _group_size() if process_count is None else process_count
+        rank = (dist.get_rank() if world > 1 else 0) if process_index is None else process_index
         n_local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         r = int(os.environ.get("LOCAL_RANK", rank % n_local))
         per = len(devices) // n_local
         devices = devices[r * per : (r + 1) * per] if per else [devices[r % len(devices)]]
-    return make_mesh(n_devices, devices=devices)
+        if len(devices) == 1:
+            torch.cuda.set_device(devices[0])
+    return devices
+
+
+def local_mesh(n_devices: int = 0) -> CellMesh:
+    """This process's mesh: its share of the devices it sees
+    (``local_devices``, which makes a share of one card current), the first
+    ``n_devices`` of them where given. The engine's step reduces nothing
+    across processes, so this mesh never spans them."""
+    return make_mesh(n_devices, devices=local_devices())
 
 
 def merge_manifests(out_dir: str | pathlib.Path) -> dict:
@@ -133,29 +156,31 @@ def merge_manifests(out_dir: str | pathlib.Path) -> dict:
     overlapping tile keys would mean two processes claimed one tile, which
     raises."""
     out_dir = pathlib.Path(out_dir)
-    merged: dict = {"tiles": {}}
-    parts = sorted(out_dir.glob("manifest_p*.json"))
-    for p in parts:
-        part = json.loads(p.read_text())
-        overlap = set(part["tiles"]) & set(merged["tiles"])
-        if overlap:
-            raise RuntimeError(f"tile(s) claimed by two processes: {sorted(overlap)}")
-        merged["tiles"].update(part["tiles"])
-    if parts:
-        tmp = out_dir / "manifest.json.tmp"
-        tmp.write_text(json.dumps(merged, indent=0))
-        tmp.replace(out_dir / "manifest.json")
-    elif (out_dir / "manifest.json").exists():
-        merged = json.loads((out_dir / "manifest.json").read_text())
-    return merged
+    with span("multihost.merge_manifests", out_dir.name):
+        merged: dict = {"tiles": {}}
+        parts = sorted(out_dir.glob("manifest_p*.json"))
+        for p in parts:
+            part = json.loads(p.read_text())
+            overlap = set(part["tiles"]) & set(merged["tiles"])
+            if overlap:
+                raise RuntimeError(f"tile(s) claimed by two processes: {sorted(overlap)}")
+            merged["tiles"].update(part["tiles"])
+        if parts:
+            tmp = out_dir / "manifest.json.tmp"
+            tmp.write_text(json.dumps(merged, indent=0))
+            tmp.replace(out_dir / "manifest.json")
+        elif (out_dir / "manifest.json").exists():
+            merged = json.loads((out_dir / "manifest.json").read_text())
+        return merged
 
 
 def barrier(name: str = "topotpu") -> None:
     """Cross-process sync point (end of a stage). No-op single-process.
-    ``name`` labels the point, as in the JAX package; the gloo barrier
-    needs none."""
+    ``name`` labels the point, as in the JAX package, and keys its span; the
+    gloo barrier needs none."""
     if _group_size() > 1:
-        dist.barrier()
+        with span("multihost.barrier", name):
+            dist.barrier()
 
 
 # --- legacy helpers (kept for API stability) --------------------------------

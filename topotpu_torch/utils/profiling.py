@@ -21,9 +21,9 @@ selection, the PPCA EM loop, the station sweeps). It is a context manager:
 
 Records go to every open ``recording()``; with none open, those taken while
 a profiler records go to one list kept to its newest ``PROFILED_LIMIT``,
-which ``recorded(t0, t1)`` reads. ``device_trace(log_dir)`` runs both and
-writes the Chrome trace (``trace.json``) and the records (``spans.json``) on
-the trace's clock.
+which ``recorded(t0, t1)`` reads. ``device_trace(log_dir, tag)`` runs both and
+writes the Chrome trace (``trace<tag>.json``) and the records
+(``spans<tag>.json``) on the trace's clock.
 """
 
 from __future__ import annotations
@@ -145,13 +145,14 @@ def recorded(t0: float | None = None, t1: float | None = None) -> list:
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str | pathlib.Path):
+def device_trace(log_dir: str | pathlib.Path, tag: str = ""):
     """Profile the enclosed work and record its spans. On exit ``log_dir``
-    holds ``trace.json``, a ``torch.profiler`` Chrome trace of the host and,
-    where a CUDA device exists, its kernels (open it in Perfetto or
-    ``chrome://tracing``), and ``spans.json``, every span of every thread
-    with its id, key, parent and thread, its times ``t0`` / ``t1`` in
+    holds ``trace<tag>.json``, a ``torch.profiler`` Chrome trace of the host
+    and, where a CUDA device exists, its kernels (open it in Perfetto or
+    ``chrome://tracing``), and ``spans<tag>.json``, every span of every
+    thread with its id, key, parent and thread, its times ``t0`` / ``t1`` in
     wall-clock ns as the trace's are (``baseTimeNanoseconds`` + ``ts``).
+    ``tag`` tells apart the files of processes that share ``log_dir``.
     Yields the list of records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -169,7 +170,7 @@ def device_trace(log_dir: str | pathlib.Path):
             yield got
         finally:
             prof.stop()
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    prof.export_chrome_trace(str(log_dir / f"trace{tag}.json"))
     spans = [{"id": r.id, "name": r.name, "t0": r.t0 + to_wall, "t1": r.t1 + to_wall,
               "thread": r.thread, "key": r.key, "parent": r.parent} for r in got]
-    (log_dir / "spans.json").write_text(json.dumps({"spans": spans}, default=repr))
+    (log_dir / f"spans{tag}.json").write_text(json.dumps({"spans": spans}, default=repr))
