@@ -15,7 +15,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 
 1. environment: torch version, the device, and ``nvidia-smi``'s name and
    power limit (a line of its own). No CUDA device: exit non-zero.
-2. build: the three kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
+2. build: the four kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
    with nvcc, all started at once. While they compile, the main thread
    builds phase 9's world on the host (numpy, 15-22 s on the card's host),
    and ``python -m topotpu_torch.cli --help`` (phase 12) runs in a process
@@ -61,7 +61,13 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    one, then that entry against its plain version by ``_compare_krig``'s
    rule, its time, the plain version's, its bound and the July normals'
    MAE against the world's truth (under 0.3 C where July's LST is a
-   covariate).
+   covariate). Then the variogram fit (``kernels/variogram_fit.py``) at the
+   station stage's shape, 10,000 fits x 15 bins x 50 Gauss-Newton steps in
+   one launch, against its plain loop: ok flags identical, after one step
+   every fit's parameters and SSE within 1e-5 of their scale, and after 50
+   at most 1 % of the fits' curves more than 1e-3 of the sill apart (a step accepted or
+   rejected on near-equal SSEs parts a few fits, as float64 does), its
+   time, the plain loop's and its bound.
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. The run must launch
@@ -105,7 +111,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    resume of three tiles recomputes exactly them, bit for bit.
 9. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
-   krig-params (k_fit = 64) and the failed-fit fill, with the usable-fit
+   krig-params (k_fit = 64; it must launch ``variogram_fit`` 12 times,
+   once a month) and the failed-fit fill, with the usable-fit
    share, the July empirical variograms of 256 sampled stations (recomputed
    from the same month's residuals) held against the float64 loop oracle,
    and the timed run's fits of them against scipy's; then the indexed
@@ -119,9 +126,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
    anomaly sweep over (8, 16, 24, 32). The indexed ``krig_normals`` launch
    counter must rise by one per x-val run. Each stage's wall time and the peak device
-   memory are printed, and profiler breakdowns of krig-params (2 of its
-   50 Gauss-Newton iterations: reading the whole trace took the profiler
-   about 50 s, 5 iterations 6 s) and of the daily x-val.
+   memory are printed, and profiler breakdowns of krig-params (its fits
+   one ``variogram_fit`` launch a month) and of the daily x-val.
 10. the stages before the infill, as the CLI's qa, homog and make-regions
    steps call them, on the CLI's synthetic network (``qa_network``:
    ``make_world(default_rng(31))``, 512 x 512 cells, 1,000 stations,
@@ -184,7 +190,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    candidate, interp one a tile-pair and two where the variables' sizes
    differ plus one ``scatter_daily_packed`` a tile-pair and no float entry,
    point and validate-f64 one ``krig_normals`` and one ``scatter_daily`` a
-   variable, the rest none), the point stage's normals, se and dailies agree
+   variable, the rest none; krig-params 24 ``variogram_fit``, one a month
+   and variable), the point stage's normals, se and dailies agree
    with the same stage on CPU tensors (the plain versions; ``[kernels]``'
    parity tolerance on 99.9 % of values, 1e-2 C cap), validate-f64 is
    within the 0.05 C bar, no decoded cell has tmax < tmin, validate is ok for both
@@ -302,7 +309,9 @@ MESH_REPS = 5           # step walls of each form, in turns, after a warm-up
 # (see start_multihost and multihost_worker)
 MH_PROCESSES = 2
 MH_TIMEOUT_S = 600      # the workers wait from the build to the end of [cli]
-KERNELS = ("krig_normals", "scatter_daily", "ok_solve")  # csrc/<name>.cu; kernel names hold them
+# csrc/<name>.cu; kernel names hold them
+KERNELS = ("krig_normals", "scatter_daily", "ok_solve", "variogram_fit")
+VF_FITS, VF_BINS, VF_ITERS = 10_000, 15, 50  # the station stage's fits of one month
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 
@@ -394,6 +403,71 @@ def solve_flops(k, xyz=True):
     right-hand sides through two triangular solves (4 k^2), the OK
     reduction (10 k); with ``xyz`` the k^2 / 2 pair distances of 12."""
     return 2 * k * k + k**3 / 3 + 4 * k * k + 10 * k + (6 * k * k if xyz else 0)
+
+
+def vfit_flops(n_bins, n_iters):
+    """Float32 operations of one variogram fit (a division or an exp as
+    one), as ``csrc/variogram_fit.cu`` runs it: a step's 40 a bin (the
+    Jacobian pass 30, the trial SSE 10) and 114 for the fit (the ten sums
+    over the lanes, the damped 3 x 3 solve, the trial point, the decision);
+    the set-up, under one step's worth, left out."""
+    return n_iters * (40 * n_bins + 114)
+
+
+def variogram_line(dev):
+    """``[kernels] variogram_fit``: the fit kernel against its plain loop
+    on VF_FITS synthetic exponential variograms (5 % noise, every 7th fit
+    with its first bins empty, every 97th with every bin empty)."""
+    import torch
+
+    from topotpu_torch.kernels.variogram_fit import fit_exp_variogram_ref, variogram_fit
+    from topotpu_torch.stats.variogram import EmpiricalVariogram
+
+    B, n = VF_FITS, VF_BINS
+    rng = np.random.default_rng(5)
+    nug, ps, rg = rng.uniform(0, 0.2, B), rng.uniform(0.5, 3, B), rng.uniform(30, 150, B)
+    h = np.linspace(5, 300, n)[None].repeat(B, 0)
+    gamma = (nug[:, None] + ps[:, None] * (1 - np.exp(-h / rg[:, None])))
+    gamma *= 1 + 0.05 * rng.normal(size=gamma.shape)
+    npairs = rng.integers(5, 80, (B, n)).astype(np.float64)
+    npairs[::7, :3] = 0
+    npairs[::97] = 0
+    gamma, h = np.where(npairs > 0, gamma, 0), np.where(npairs > 0, h, 0)
+    emp = EmpiricalVariogram(*(torch.tensor(a, dtype=torch.float32, device=dev)
+                               for a in (gamma, h, npairs, np.full(B, 300.0))))
+    t = time.perf_counter()
+    # one step: every fit's parameters and SSE within 1e-5 of their scale (the
+    # sill, the range, the sill squared), as the card tests hold them
+    one = [[a.double().cpu().numpy() for a in f[:4]]
+           for f in (variogram_fit(emp, 1), fit_exp_variogram_ref(emp, 1))]
+    sill = one[1][0] + one[1][1]
+    step1 = max(float(np.max(np.abs(g - w) / (scale + 1e-30)))
+                for g, w, scale in zip(*one, (sill, sill, one[1][2], sill**2)))
+    if not step1 <= 1e-5:
+        raise AssertionError(f"variogram_fit: one step {step1:.3e} of scale from the plain "
+                             f"loop's")
+    got, want = variogram_fit(emp, VF_ITERS), fit_exp_variogram_ref(emp, VF_ITERS)
+    ok = want.ok.cpu().numpy()
+    if not np.array_equal(got.ok.cpu().numpy(), ok):
+        raise AssertionError("variogram_fit: ok flags differ from the plain loop's")
+    p = [[a.double().cpu().numpy() for a in (f.nugget, f.psill, f.rng)] for f in (got, want)]
+    curve = [q[0][:, None] + q[1][:, None] * (1 - np.exp(-h / q[2][:, None])) for q in p]
+    gap = (np.abs(curve[0] - curve[1]).max(1) / (p[1][0] + p[1][1]))[ok]
+    if np.mean(gap > 1e-3) > 0.01:
+        raise AssertionError(f"variogram_fit: {np.sum(gap > 1e-3)} of {ok.sum()} fits more "
+                             f"than 1e-3 of the sill from the plain loop's")
+    t_cmp = time.perf_counter() - t
+    ms = cuda_ms(lambda: variogram_fit(emp, VF_ITERS), 20)
+    plain_ms = cuda_ms(lambda: fit_exp_variogram_ref(emp, VF_ITERS), 2, warmup=1)
+    nbytes = 3 * B * n * 4 + B * 4 + 4 * B * 4 + B
+    bnd = bound(nbytes, B * vfit_flops(n, VF_ITERS))
+    log(f"[kernels] variogram_fit B={B} n_bins={n} n_iters={VF_ITERS}, 1 launch: ok flags "
+        f"identical; after one step at most {step1:.3e} of scale from the plain loop; curves "
+        f"vs the plain loop, in sills: median {np.median(gap):.3e}, 99th "
+        f"percentile {np.quantile(gap, 0.99):.3e}, max {gap.max():.3e} ({np.sum(gap > 1e-3)} "
+        f"of {ok.sum()} fits over 1e-3) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({t_cmp:.1f} s to compare)")
+    return dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
 
 
 def krig_flops(k, n_systems, n_nbr=1, q=3, qa=3, q_fixed=2):
@@ -648,6 +722,7 @@ def phase_kernels(world, days, rows64, dev):
         del args, idx, dist, mask, table, cell
     del ti
     report.update(scatter_lines(rows64, dev))
+    report["variogram_fit"] = variogram_line(dev)
     return report
 
 
@@ -1831,6 +1906,7 @@ def phase_stations(dev, prebuilt):
         xval_interp_normals,
     )
     from topotpu_torch.kernels.krig_normals import krig_normals_indexed
+    from topotpu_torch.kernels.variogram_fit import variogram_fit
 
     world, st, ndays, build_s = prebuilt
     S = len(st.lon)
@@ -1850,8 +1926,12 @@ def phase_stations(dev, prebuilt):
 
     vp = VariogramParams(k_fit_neighbors=64, n_bins=15, gn_iters=50)
     ip = InterpParams()
+    variogram_fit.launches = 0
     res = timed("krig-params", lambda: krig_params_to_numpy(build_krig_params(
         st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev)))
+    fits = variogram_fit.launches
+    if fits != 12:  # one launch fits a month's stations
+        raise RuntimeError(f"krig-params: {fits} variogram_fit launches, expected 12")
     usable = float(res.ok.mean())
     if usable <= 0.95:
         raise RuntimeError(f"only {usable:.4f} of the fits are usable")
@@ -1944,16 +2024,12 @@ def phase_stations(dev, prebuilt):
     log(f"[stations] krig_normals launches {counts}; walls "
         + " ".join(f"{n} {w:.3f} s" for n, w in walls.items())
         + f"; peak device memory {peak:.3f} GiB")
-    # the profiler takes ~50 s to read the trace of all 50 Gauss-Newton
-    # iterations (~40,000 small kernels), 6 s for 5; 2 of them show the same
-    # kernels
-    vp2 = dataclasses.replace(vp, gn_iters=2)
-    profile_breakdown("stations", "krig-params with 2 of its 50 GN iterations",
+    profile_breakdown("stations", "krig-params",
                       lambda: build_krig_params(st.lon, st.lat, st.elev, st.tdi, st.lst,
-                                                st.norm, st.valid, vp2, ip, dev))
+                                                st.norm, st.valid, vp, ip, dev))
     profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
         *st.krig(), st.anoms, st.month_idx, p32, dev))
-    return sum(counts.values()), world
+    return sum(counts.values()), fits, world
 
 
 def _observed_day(arrays, s, t0, half=0):
@@ -2407,6 +2483,7 @@ def phase_cli(dev, helped):
     from topotpu_torch.geo.regions import make_climate_regions
     from topotpu_torch.interp.point import krig_launches
     from topotpu_torch.io.rasters import RasterStack
+    from topotpu_torch.kernels.variogram_fit import variogram_fit
 
     t_phase = time.perf_counter()
     out, err = helped.communicate(timeout=300)
@@ -2486,7 +2563,11 @@ def phase_cli(dev, helped):
                 for i, name in enumerate((C.VARIO_NUG, C.VARIO_PSILL, C.VARIO_RNG)):
                     st["stn"][v][name] = vario[..., i]
             return out
+        variogram_fit.launches = 0
         stage("krig-params", krig_params)
+        total["variogram_fit"] = variogram_fit.launches
+        if total["variogram_fit"] != 12 * len(VARS):  # one launch a month and variable
+            raise RuntimeError(f"krig-params: {total['variogram_fit']} variogram_fit launches")
 
         def optim_nnghs():
             reg = make_climate_regions(rasters)  # step_make_regions' defaults
@@ -2580,7 +2661,7 @@ def phase_cli(dev, helped):
                 if (info is None or info["verify"]["viol"] != 0
                         or info["verify"]["covered"] != land or info.get("k") != want_k):
                     raise RuntimeError(f"manifest {v} tile {t.tile_id}: {info}")
-        zero = dict.fromkeys(total, 0)
+        zero = dict.fromkeys(_read_launches(), 0)
         want = {name: zero for name in launches}
         want["optim-nnghs"] = dict(zero, krig_normals=2 * (
             len(CLI_CANDIDATES) + sum(k <= cfg.interp.k_neighbors for k in CLI_CANDIDATES)))
@@ -3142,7 +3223,7 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
     for kernel, n in phase_engine(dev).items():
         launches[kernel] += n
     lap("engine")
-    st_launches, st_world = phase_stations(dev, st_prebuilt)
+    st_launches, launches["variogram_fit"], st_world = phase_stations(dev, st_prebuilt)
     del st_prebuilt
     launches["krig_normals"] += st_launches
     lap("stations")
@@ -3181,6 +3262,8 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
                         "topotpu/kernels/pallas_krig.py:584"),
         ok_solve_fused_xyz=("topotpu_torch/kernels/csrc/ok_solve.cu",
                             "topotpu/kernels/pallas_krig.py:608"),
+        variogram_fit=("topotpu_torch/kernels/csrc/variogram_fit.cu",
+                       None),  # replaces no TPU kernel: XLA runs the JAX package's loop
     )
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],

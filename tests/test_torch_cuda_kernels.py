@@ -13,15 +13,33 @@ and atol 1e-5, its packed entry by the integer rule (identical sentinels, at
 most one int16 count apart, under 1 % of counts differing); the OK solve's weights rtol 2e-4 atol 2e-5 (5e-5 above
 k = 32), variance rtol 2e-3 atol 1e-4, identical ok flags and masked
 weights exactly 0 (``tests/test_pallas_krig.py``'s).
+
+The variogram fit: identical ok flags; after 0 or 1 Gauss-Newton steps the
+nugget and psill within 1e-5 of the sill, the range within rtol 1e-5 and the
+SSE within 1e-5 of the squared sill (the scale of each; a small nugget's own
+relative error after one step is the solve's conditioning times float32
+rounding). After 50 steps ``tests/test_torch_variogram.py``'s bar (curves
+within 1e-3 of the sill, weighted SSEs within 1 %), held by count against a
+float64 run of the plain version: a step accepted or rejected on near-equal
+SSEs sends a fit elsewhere along a flat valley of the SSE, so sums taken in
+another order part a few fits in a thousand from the plain version's, as
+float64 arithmetic parts them (see ``test_variogram_fit_kernel_matches_plain``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from topotpu_torch.core.config import InterpParams, VariogramParams
 from topotpu_torch.core.dates import get_days_metadata
+from topotpu_torch.interp import params as tparams
 from topotpu_torch.interp.point import VarFields, tile_neighborhoods, tile_tables
-from topotpu_torch.io.synthetic import krig_rows_from_world, make_world, tile_inputs_from_world
+from topotpu_torch.io.synthetic import (
+    krig_rows_from_world,
+    make_world,
+    station_arrays_from_world,
+    tile_inputs_from_world,
+)
 from topotpu_torch.kernels import _build
 from topotpu_torch.kernels import krig_normals as kn
 from topotpu_torch.kernels.krig_normals import krig_normals_indexed, krig_normals_indexed_ref
@@ -37,6 +55,9 @@ from topotpu_torch.kernels.scatter_daily import (
     scatter_daily_packed_ref,
     scatter_daily_ref,
 )
+from topotpu_torch.kernels.variogram_fit import fit_exp_variogram_ref, variogram_fit
+from topotpu_torch.stats.variogram import EmpiricalVariogram
+from variogram_cases import fits_apart, synthetic_emp
 
 pytestmark = pytest.mark.cuda
 
@@ -553,3 +574,109 @@ def test_wrappers_refuse_bad_inputs(dev):
         ok_solve_fused(dp, dist_t, mask_t.bool(), *par)
     with pytest.raises(ValueError, match="shape"):
         ok_solve_fused_xyz(dp, dist_t, mask_t, *par)
+
+
+def _vfit_case(dev, B, n_bins, seed=4):
+    """B synthetic variograms (``variogram_cases.synthetic_emp``, 5 % noise,
+    some bins empty) as float64 numpy arrays and as float32 operands on
+    ``dev``; every 11th fit from the 3rd keeps 3 non-empty bins (fewer than
+    min_bins = 4), every 13th from the 6th none."""
+    gamma, h, npairs, cutoff = synthetic_emp(seed, B, n_bins, noise=0.05)
+    npairs[2::11, 3:] = 0.0
+    npairs[5::13] = 0.0
+    gamma[npairs == 0] = 0.0
+    h[npairs == 0] = 0.0
+    arrays = [a.astype(np.float64) for a in (gamma, h, npairs)]
+    return arrays, EmpiricalVariogram(*(torch.from_numpy(a).to(dev)
+                                        for a in (gamma, h, npairs, cutoff)))
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 50])
+@pytest.mark.parametrize("n_bins", [15, 20])  # 20: lanes 0-3 take two bins
+@pytest.mark.parametrize("B", [1, 37, 10_000])
+def test_variogram_fit_kernel_matches_plain(dev, B, n_bins, n_iters):
+    """The kernel against the plain loop on the card. After 50 steps the
+    fits that miss the bar are counted, and may be no more than twice those
+    where the plain loop in float64 misses it against itself in float32, + 2:
+    on these curves the float64 run parts 0.1-0.3 % of the fits (CPU runs)."""
+    (gamma, h, npairs), emp = _vfit_case(dev, B, n_bins)
+    variogram_fit.launches = 0
+    got = variogram_fit(emp, n_iters)
+    torch.cuda.synchronize()
+    assert variogram_fit.launches == 1
+    want = fit_exp_variogram_ref(emp, n_iters)
+    g = {f: getattr(got, f).cpu().numpy() for f in got._fields}
+    w = {f: getattr(want, f).cpu().numpy() for f in want._fields}
+    assert g["ok"].dtype == bool and g["nugget"].dtype == np.float32
+    np.testing.assert_array_equal(g["ok"], w["ok"])
+    np.testing.assert_array_equal(g["ok"], (npairs > 0).sum(1) >= 4)
+    for f in ("nugget", "psill", "rng", "sse"):
+        assert np.isfinite(g[f]).all(), f
+    if n_iters <= 1:
+        sill = w["nugget"].astype(np.float64) + w["psill"]
+        for f, scale in (("nugget", sill), ("psill", sill), ("rng", w["rng"]),
+                         ("sse", sill**2)):
+            np.testing.assert_array_less(np.abs(g[f].astype(np.float64) - w[f]),
+                                         1e-5 * scale + 1e-30, err_msg=f)
+        return
+    ok = w["ok"]
+    apart = fits_apart(got, want, gamma, h, npairs)[ok]
+    want64 = fit_exp_variogram_ref(EmpiricalVariogram(*(t.double() for t in emp)), n_iters)
+    apart64 = fits_apart(want64, want, gamma, h, npairs)[ok]
+    assert apart.sum() <= 2 * apart64.sum() + 2, (apart.sum(), apart64.sum(), ok.sum())
+
+
+def test_variogram_fit_refuses_bad_inputs(dev):
+    _, emp = _vfit_case(dev, 16, 15)
+    variogram_fit.launches = 0
+    with pytest.raises(TypeError):
+        variogram_fit(EmpiricalVariogram(*(t.double() for t in emp)))
+    with pytest.raises(ValueError, match="contiguous"):
+        variogram_fit(emp._replace(h=emp.h.T.contiguous().T))
+    with pytest.raises(ValueError, match="shape"):
+        variogram_fit(emp._replace(npairs=emp.npairs[:, :-1].contiguous()))
+    with pytest.raises(ValueError, match="shape"):
+        variogram_fit(emp._replace(cutoff=emp.cutoff[:, None]))
+    with pytest.raises(ValueError, match="shape"):
+        variogram_fit(emp._replace(gamma=emp.gamma[0]))
+    with pytest.raises(ValueError, match="devices"):
+        variogram_fit(emp._replace(cutoff=emp.cutoff.cpu()))
+    assert variogram_fit.launches == 0
+
+
+def test_build_krig_params_launches_the_fit_kernel_a_month(dev, monkeypatch):
+    """``build_krig_params`` on ``tests/test_torch_krig_params.py``'s world
+    (the port's ``make_world``) launches the fit once a month and matches a
+    run through the plain loop on the card, by that file's bar: ok flags
+    identical; on at least 97 % of station-months the curves within 1 % of
+    the sill and the SSEs within 1 % (these nearly flat variograms part
+    fits along their valleys, as float32 against the JAX package does); the
+    network's median sill and range within 1 %."""
+    world = make_world(np.random.default_rng(11), nrows=60, ncols=60, n_stations=150,
+                       ndays=30, cellsize=1.0 / 30.0, vario=(0.05, 1.0, 160.0))
+    st = station_arrays_from_world(world)
+    valid = st.valid.copy()
+    valid[5, 3] = False
+    valid[:, 9][::50] = False
+    args = (st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, valid,
+            VariogramParams(k_fit_neighbors=32), InterpParams(), dev)
+    variogram_fit.launches = 0
+    got = tparams.krig_params_to_numpy(tparams.build_krig_params(*args))
+    assert variogram_fit.launches == 12
+    monkeypatch.setattr(tparams, "fit_exp_variogram", fit_exp_variogram_ref)
+    want = tparams.krig_params_to_numpy(tparams.build_krig_params(*args))
+    assert variogram_fit.launches == 12
+    np.testing.assert_array_equal(got.ok, want.ok)
+    assert not got.ok[5, 3] and got.ok.mean() > 0.95
+    gv, wv = got.vario.astype(np.float64), want.vario.astype(np.float64)
+    sill = wv[..., 0] + wv[..., 1]
+    h = np.linspace(0.0, 3.0 * np.median(wv[..., 2]), 31)
+    curve = lambda v: v[..., 0, None] + v[..., 1, None] * (1 - np.exp(-h / v[..., 2, None]))  # noqa: E731
+    rel_curve = np.abs(curve(gv) - curve(wv)).max(-1) / sill
+    rel_sse = np.abs(got.sse / np.maximum(want.sse, 1e-12) - 1.0)
+    ok = want.ok
+    assert np.mean(rel_curve[ok] <= 1e-2) >= 0.97, np.mean(rel_curve[ok] <= 1e-2)
+    assert np.mean(rel_sse[ok] <= 1e-2) >= 0.97, np.mean(rel_sse[ok] <= 1e-2)
+    np.testing.assert_allclose(np.median((gv[..., 0] + gv[..., 1])[ok]), np.median(sill[ok]),
+                               rtol=1e-2)
+    np.testing.assert_allclose(np.median(gv[..., 2][ok]), np.median(wv[..., 2][ok]), rtol=1e-2)

@@ -75,6 +75,8 @@ i.krig_normals; i.krig_normals_and_gains; i.NormalsResult; i.anomaly_gain_rows; 
 import topotpu_torch.interp.normals
 from topotpu_torch.kernels.krig_normals import krig_normals_gathered
 assert krig_normals_gathered.launches == 0
+from topotpu_torch.kernels.variogram_fit import variogram_fit
+assert variogram_fit.launches == 0
 from topotpu_torch.core import DaysMetadata, GridSpec, TileSpec, TopoConfig, config, constants
 from topotpu_torch.core import dates, get_days_metadata, grid
 import torch.distributed as dist

@@ -1,5 +1,7 @@
 """The port's variogram model, empirical estimator and Gauss-Newton fit
-against ``topotpu.stats.variogram`` and the float64 loop/scipy oracles.
+against ``topotpu.stats.variogram`` and the float64 loop/scipy oracles. On
+CPU tensors the fit is the plain loop ``kernels.variogram_fit.
+fit_exp_variogram_ref``, bit for bit, and launches nothing.
 
 Tolerances. The model and the 3 x 3 solve agree to float32 rounding (rtol
 1e-6). Empirical variograms: identical pair counts, gamma and mean distance
@@ -19,7 +21,11 @@ import torch
 
 from topotpu.oracle import numpy_ref as oracle
 from topotpu.stats import variogram as jvario
+from topotpu_torch.kernels import variogram_fit as kvario
 from topotpu_torch.stats import variogram as tvario
+from variogram_cases import assert_fits_agree as _assert_fits_agree
+from variogram_cases import synthetic_emp as _synthetic_emp
+from variogram_cases import wsse as _wsse
 
 torch.set_num_threads(1)
 T = torch.from_numpy
@@ -76,53 +82,6 @@ def test_empirical_matches_jax_and_loop_oracle(n_bins, max_dist_frac):
         np.testing.assert_array_equal(got.npairs.numpy()[b], wn)
         np.testing.assert_allclose(got.gamma.numpy()[b], wg, rtol=1e-4, atol=1e-6)
         np.testing.assert_allclose(got.h.numpy()[b], wh, rtol=1e-4, atol=1e-6)
-
-
-def _synthetic_emp(seed, B, n_bins=15, noise=0.0):
-    """Exponential-model curves with multiplicative noise, as
-    ``tests/test_variogram.py`` builds them, plus a few empty bins."""
-    rng = np.random.default_rng(seed)
-    nug = rng.uniform(0.0, 0.2, B)
-    ps = rng.uniform(0.5, 3.0, B)
-    rg = rng.uniform(30, 150, B)
-    h = np.linspace(5, 300, n_bins)[None, :].repeat(B, 0)
-    gamma = nug[:, None] + ps[:, None] * (1 - np.exp(-h / rg[:, None]))
-    gamma = gamma * (1 + noise * rng.normal(size=gamma.shape))
-    npairs = rng.integers(5, 80, (B, n_bins)).astype(np.float64)
-    npairs[::3, 0] = 0.0
-    npairs[1::4, -3:] = 0.0
-    gamma = np.where(npairs > 0, gamma, 0.0)
-    h = np.where(npairs > 0, h, 0.0)
-    f32 = lambda a: a.astype(np.float32)  # noqa: E731
-    return f32(gamma), f32(h), f32(npairs), np.full(B, 300.0, np.float32)
-
-
-def _wsse(gamma, h, npairs, nug, ps, rg):
-    """Weighted SSE of the fit objective, float64 (``tests/test_variogram.py``)."""
-    ok = npairs > 0
-    w = np.where(ok, npairs / np.maximum(h, 1e-3) ** 2, 0.0)
-    w = w / w.sum(-1, keepdims=True)
-    model = nug[:, None] + ps[:, None] * (1 - np.exp(-h / rg[:, None]))
-    return np.sum(np.where(ok, w * (gamma - model) ** 2, 0.0), -1)
-
-
-def _assert_fits_agree(got, want, gamma, h, npairs):
-    ok = np.asarray(want.ok)
-    np.testing.assert_array_equal(got.ok.numpy(), ok)
-    g = [got.nugget.numpy(), got.psill.numpy(), got.rng.numpy()]
-    w = [np.asarray(want.nugget), np.asarray(want.psill), np.asarray(want.rng)]
-    g64 = [a.astype(np.float64) for a in g]
-    w64 = [a.astype(np.float64) for a in w]
-    sill = w64[0] + w64[1]
-    curve = lambda p: p[0][:, None] + p[1][:, None] * (1 - np.exp(-h / p[2][:, None]))  # noqa: E731
-    np.testing.assert_array_less(np.abs(curve(g64) - curve(w64))[ok].max(1),
-                                 1e-3 * sill[ok] + 1e-6)
-    sg, sw = _wsse(gamma, h, npairs, *g64), _wsse(gamma, h, npairs, *w64)
-    assert np.all(sg[ok] <= 1.01 * sw[ok] + 1e-9) and np.all(sw[ok] <= 1.01 * sg[ok] + 1e-9)
-    np.testing.assert_allclose(got.sse.numpy()[ok], np.asarray(want.sse)[ok],
-                               rtol=1e-2, atol=1e-9)
-    for a, b in zip(g, w):
-        np.testing.assert_allclose(a[ok], b[ok], rtol=0.05, atol=0.02)
 
 
 @pytest.mark.parametrize("noise", [0.0, 0.05, 0.3])
@@ -197,7 +156,7 @@ def test_helpers_match_jax():
     A = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(3, dtype=np.float32)
     A[3] = 0.0  # singular: the determinant guard
     b = rng.normal(size=(20, 3)).astype(np.float32)
-    np.testing.assert_allclose(tvario._solve3(T(A), T(b)).numpy(),
+    np.testing.assert_allclose(kvario._solve3(T(A), T(b)).numpy(),
                                np.asarray(jvario._solve3(jnp.asarray(A), jnp.asarray(b))),
                                rtol=1e-5, atol=1e-6)
     x = rng.normal(size=(6, 15)).astype(np.float32)
@@ -205,7 +164,25 @@ def test_helpers_match_jax():
     ok[0] = False
     ok[1, 7:] = False
     for name in ("_first_valid", "_tail_mean"):
-        np.testing.assert_allclose(getattr(tvario, name)(T(x), T(ok)).numpy(),
+        np.testing.assert_allclose(getattr(kvario, name)(T(x), T(ok)).numpy(),
                                    np.asarray(getattr(jvario, name)(jnp.asarray(x),
                                                                     jnp.asarray(ok))),
                                    rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 50])
+@pytest.mark.parametrize("noise", [0.05, 0.3])
+def test_fit_on_cpu_is_the_plain_loop_bit_for_bit(n_iters, noise):
+    """On CPU tensors ``fit_exp_variogram`` runs ``fit_exp_variogram_ref``
+    and launches no kernel, npairs as ``empirical_variogram`` leaves it (a
+    strided view) included."""
+    gamma, h, npairs, cutoff = _synthetic_emp(2, 40, noise=noise)
+    padded = np.concatenate([npairs, np.zeros((40, 1), np.float32)], 1)
+    emp = tvario.EmpiricalVariogram(T(gamma), T(h), T(padded)[:, :-1], T(cutoff))
+    assert not emp.npairs.is_contiguous()
+    kvario.variogram_fit.launches = 0
+    got = tvario.fit_exp_variogram(emp, n_iters=n_iters)
+    want = kvario.fit_exp_variogram_ref(emp, n_iters=n_iters)
+    assert kvario.variogram_fit.launches == 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)

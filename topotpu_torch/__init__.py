@@ -21,9 +21,9 @@ subpackage names so that each module's counterpart is easy to find:
 ``geo``                great-circle distances, kNN neighbourhoods, weights,
                        climate regions
 ``kernels``            batched WLS / kriging solves, and the hand-written
-                       CUDA kernels ``krig_normals``, ``scatter_daily`` and
-                       ``ok_solve`` (sources in ``kernels/csrc``) beside
-                       their plain torch versions
+                       CUDA kernels ``krig_normals``, ``scatter_daily``,
+                       ``ok_solve`` and ``variogram_fit`` (sources in
+                       ``kernels/csrc``) beside their plain torch versions
 ``stats``              the exponential variogram (model, empirical
                        estimator, batched Gauss-Newton fit) and PPCA
 ``infill``             predictor selection, batched PPCA imputation,

@@ -1,7 +1,8 @@
 """Batched solves (plain torch) and the hand-written CUDA kernels, each beside
 its plain version in its own module (``kernels.krig_normals`` and
 ``kernels.scatter_daily`` of the tile step; ``kernels.ok_solve_fused``, the
-fused OK solve at its own API). Importing this package builds and loads
+fused OK solve at its own API; ``kernels.variogram_fit``, the station
+variograms' Gauss-Newton fit). Importing this package builds and loads
 nothing: a kernel is compiled at its first launch (see ``_build``)."""
 
 from topotpu_torch.kernels.cholesky import (  # noqa: F401
