@@ -22,18 +22,22 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    of its own: the script's 240 s budget had no room for either in turn.
    The OK solve's library, the slowest to compile, is waited for only
    where its lines begin, after the other kernels' lines.
-3. kernel vs plain version on the card at production shapes (65,536 cells,
-   a 512-station pool, k = 32 and 64; the daily contraction at D = 744 and
-   2,976), with the CPU parity tests' tolerances on 99.9 % of values, a cap
-   on every value and a float64 run as arbiter (see ``_compare_krig``), and
-   CUDA-event times. ``krig_normals`` takes the tile step's 24 systems a
-   cell in one launch, with one shared neighbourhood and with one a month
-   (and, at k = 32, under the gaussian and the uniform weight kernel); its
-   time stands beside that of the same systems solved one a launch, 24
-   launches on the same inputs. Beside each kernel's time: its bound (the
-   larger of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s), and
-   for the daily contraction the time of ``scatter_add_`` + ``matmul`` (two
-   library calls). The daily contraction's packed entry
+3. kernel vs plain version on the card at production shapes (65,536
+   cells, a 512-station pool, k = 32 and 64; the daily contraction at D =
+   744 and 2,976), with the CPU parity tests' tolerances on 99.9 % of
+   values, a cap on every value and a float64 run as arbiter (see
+   ``_compare_krig``), and CUDA-event times. ``krig_normals`` takes the tile
+   step's 24 systems a cell in one launch, with one shared neighbourhood and
+   with one a month (and, at k = 32, under the gaussian and the uniform
+   weight kernel, and with the systems on the first 24 slots and the gain
+   rows on the first 16, one neighbourhood a month, the sizes of the main
+   path's anomaly sweep and per-variable tiles, with float64 deciding for
+   the normal and the trend by statistics); its time stands beside that of
+   the same systems solved one a launch, 24 launches on the same inputs.
+   Beside each kernel's time: its bound (the larger of bytes over 3.35 TB/s
+   and fp32 operations over 67 TFLOP/s), and for the daily contraction the
+   time of ``scatter_add_`` + ``matmul`` (two library calls). The daily
+   contraction's packed entry
    (``scatter_daily_packed``: contraction, + normal, reconcile, int16
    quantisation and calendar order in one launch) runs at both variables,
    365 days (31 slots a month) and 1,461 days (124), with one neighbourhood
@@ -542,9 +546,12 @@ def _compare_krig(got, want, want64, k, ill_conditioned=False, collinear=False):
 
     With ``collinear`` (a trend design whose columns share a term: the LST
     of several months, each a constant minus 0.0055 x elevation plus a
-    field of its own) float64 decides for the normal and the trend at any k
-    as the ``ill_conditioned`` rule does below k = 24: 99 % of values inside
-    the parity tolerance, the statistics against float64, the worst within
+    field of its own; or elevation and one month's LST on a 24-slot prefix,
+    where the plain version's normal sits up to 8.8e-3 C from float64 and
+    the kernel's up to 2.9e-3 C, 1.0e-2 C apart at the worst cell) float64
+    decides for the normal and the trend at any k as the
+    ``ill_conditioned`` rule does below k = 24: 99 % of values inside the
+    parity tolerance, the statistics against float64, the worst within
     0.1 C."""
     import torch
 
@@ -637,11 +644,13 @@ def _indexed_inputs(ti, k, per_month, dev):
 
 
 def _compare_indexed(args, pairs, per_month, k, ill_conditioned=False,
-                     weight_kernel="bisquare"):
+                     weight_kernel="bisquare", k_normal=None, k_anom=None, collinear=False):
     """The indexed entry against its plain version on the arguments ``args``
-    (idx, dist, mask, table, cell), system by system, by ``_compare_krig``'s
-    rule: the worst error, the most not-ok cells of a system, and the normals'
-    distances from float64 (kernel, plain)."""
+    (idx, dist, mask, table, cell), the systems on the first ``k_normal``
+    slots and the gain rows on the first ``k_anom`` (None: all k), system by
+    system, by ``_compare_krig``'s rule at the systems' slot count: the worst
+    error, the most not-ok cells of a system, and the normals' distances from
+    float64 (kernel, plain)."""
     import torch
 
     from topotpu_torch.kernels.krig_normals import (
@@ -649,7 +658,7 @@ def _compare_indexed(args, pairs, per_month, k, ill_conditioned=False,
         krig_normals_indexed_ref,
     )
 
-    kw = dict(weight_kernel=weight_kernel)
+    kw = dict(weight_kernel=weight_kernel, k_normal=k_normal, k_anom=k_anom)
     head, gains = krig_normals_indexed(*args, pairs, not per_month, **kw)
     torch.cuda.synchronize()
     want = krig_normals_indexed_ref(*args, pairs, not per_month, **kw)
@@ -662,7 +671,8 @@ def _compare_indexed(args, pairs, per_month, k, ill_conditioned=False,
     for p, (m, _) in enumerate(pairs):
         n = m if per_month else 0
         e, bad, ek, ep = _compare_krig(rows((head, gains), p, n), rows(want, p, n),
-                                       rows(want64, p, n), k, ill_conditioned)
+                                       rows(want64, p, n), k_normal or k, ill_conditioned,
+                                       collinear)
         err, n_not_ok = max(err, e), max(n_not_ok, bad)
         e64_kern, e64_plain = max(e64_kern, ek), max(e64_plain, ep)
     return err, n_not_ok, e64_kern, e64_plain
@@ -683,15 +693,20 @@ def phase_kernels(world, days, rows64, dev):
     cells = np.unravel_index(np.arange(C), (N_SIDE, N_SIDE))
     ti, _ = tile_inputs_from_world(world, days.month_idx, *cells, dev)
     pairs = [(m, v) for m in range(12) for v in range(2)]
-    for k, per_month, weight_kernel in (
-            (K, False, "bisquare"), (K, True, "bisquare"), (64, False, "bisquare"),
-            (64, True, "bisquare"), (K, False, "gaussian"), (K, False, "uniform")):
+    for k, per_month, weight_kernel, k_normal, k_anom in (
+            (K, False, "bisquare", None, None), (K, True, "bisquare", None, None),
+            (64, False, "bisquare", None, None), (64, True, "bisquare", None, None),
+            (K, False, "gaussian", None, None), (K, False, "uniform", None, None),
+            (K, True, "bisquare", 24, 16)):
         t = time.perf_counter()
         args = _indexed_inputs(ti, k, per_month, dev)
+        kw = dict(weight_kernel=weight_kernel, k_normal=k_normal, k_anom=k_anom)
+        # elevation and LST on 24 slots: float64 decides by statistics (see
+        # _compare_krig)
+        collinear = (k_normal or k) <= 24
         err, n_not_ok, e64_kern, e64_plain = _compare_indexed(
-            args, pairs, per_month, k, weight_kernel=weight_kernel)
+            args, pairs, per_month, k, collinear=collinear, **kw)
         t_cmp = time.perf_counter() - t
-        kw = dict(weight_kernel=weight_kernel)
         kern = lambda: krig_normals_indexed(*args, pairs, not per_month, **kw)  # noqa: E731
         plain = lambda: krig_normals_indexed_ref(*args, pairs, not per_month, **kw)  # noqa: E731
         ms, plain_ms = cuda_ms(kern, 10), cuda_ms(plain, 1, warmup=0)
@@ -700,7 +715,9 @@ def phase_kernels(world, days, rows64, dev):
         nbytes = (idx.numel() * (8 + 4 + 1) + (table.numel() + cell.numel()) * 4
                   + (len(pairs) * C * 8 + N * C * k) * 4)
         bnd = bound(nbytes, C * krig_flops(k, len(pairs), N))
-        line = (f"[kernels] krig_normals C={C} S={N_STATIONS} k={k} {weight_kernel} "
+        sizes = (f" k_normal={k_normal} k_anom={k_anom} (float64 decides by mean, 99th and "
+                 f"99.9th percentile)" if k_normal else "")
+        line = (f"[kernels] krig_normals C={C} S={N_STATIONS} k={k}{sizes} {weight_kernel} "
                 f"{'one neighbourhood a month' if per_month else 'shared neighbourhood'}, "
                 f"{len(pairs)} systems a cell in 1 launch: max_abs_err {err:.3e} (normal vs "
                 f"float64: kernel {e64_kern:.3e}, plain {e64_plain:.3e}; not-ok cells "
@@ -1260,9 +1277,10 @@ def phase_slice(world, days, dev):
 
 def phase_per_var(world, days, dev):
     """The paired step with per-variable neighbourhood sizes (what the nnghs
-    optimisation hands to production) on one 128 x 128 tile: each variable's
-    12 systems take a launch of ``krig_normals`` of their own, masked beyond
-    that variable's k, and one ``scatter_daily_packed`` launch reads each
+    optimisation hands to production) on one 128 x 128 tile: each distinct
+    (k, ka) pair takes a launch of ``krig_normals`` of its own (here one a
+    variable), whose systems read the slots below that k and whose gain rows
+    those below that ka, and one ``scatter_daily_packed`` launch reads each
     variable's own gain rows. Var A keeps k = ka = 32 and is held against the
     float64 oracle; var B runs at k = 24, ka = 16."""
     import torch
@@ -1284,7 +1302,7 @@ def phase_per_var(world, days, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
-    # krig_normals once a variable; one packed launch reads both variables' gain rows
+    # krig_normals once a (k, ka) pair; one packed launch reads both variables' gain rows
     if launches != dict(krig_normals=2, scatter_daily=0, scatter_daily_packed=1):
         raise RuntimeError(f"per-variable step: launches {launches}")
     buf = out.buf.cpu().numpy()

@@ -105,23 +105,37 @@ def _indexed(dev, C, k, per_month, seed=0):
     return idx, dist * mask, mask, table, cell
 
 
-@pytest.mark.parametrize("k, C, per_month, weight_kernel", [
-    (1, 37, False, "bisquare"), (8, 300, True, "gaussian"), (32, 1000, False, "bisquare"),
-    (32, 513, True, "uniform"), (33, 129, False, "bisquare"), (64, 257, True, "bisquare"),
+@pytest.mark.parametrize("k, C, per_month, weight_kernel, k_normal, k_anom", [
+    (1, 37, False, "bisquare", None, None), (8, 300, True, "gaussian", None, None),
+    (32, 1000, False, "bisquare", None, None), (32, 513, True, "uniform", None, None),
+    (33, 129, False, "bisquare", None, None), (64, 257, True, "bisquare", None, None),
+    (32, 513, True, "uniform", 24, 24), (32, 513, True, "gaussian", 32, 8),
+    (16, 300, True, "bisquare", 12, 16), (32, 1000, False, "bisquare", 12, 16),
 ])
-def test_krig_normals_indexed_kernel_matches_plain(dev, k, C, per_month, weight_kernel):
+def test_krig_normals_indexed_kernel_matches_plain(dev, k, C, per_month, weight_kernel,
+                                                   k_normal, k_anom):
+    """Kernel against plain version, the systems on the first ``k_normal``
+    slots and the gain rows on the first ``k_anom``; and the two sizes give
+    the bits of a call at the full sizes on the mask cut at each."""
     args = _indexed(dev, C, k, per_month)
     pairs = [(m, v) for m in range(12) for v in range(2)]
+    kw = dict(weight_kernel=weight_kernel, k_normal=k_normal, k_anom=k_anom)
     n0 = krig_normals_indexed.launches
-    head, gains = krig_normals_indexed(*args, pairs, not per_month, weight_kernel=weight_kernel)
+    head, gains = krig_normals_indexed(*args, pairs, not per_month, **kw)
     assert krig_normals_indexed.launches == n0 + 1  # one launch for the 24 systems
-    whead, wgains = krig_normals_indexed_ref(*args, pairs, not per_month,
-                                             weight_kernel=weight_kernel)
+    whead, wgains = krig_normals_indexed_ref(*args, pairs, not per_month, **kw)
     torch.cuda.synchronize()
     assert head.shape == (24, C, 8) and gains.shape == (12 if per_month else 1, C, k)
     idx, dist, mask, table, cell = args
+    kn_, ka = k_normal or k, k_anom or k
+    slots = torch.arange(k, device=dev)
+    cut = lambda size: krig_normals_indexed(  # noqa: E731
+        idx, dist, mask & (slots < size), table, cell, pairs, not per_month,
+        weight_kernel=weight_kernel)
+    torch.testing.assert_close(head, cut(kn_)[0], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(gains, cut(ka)[1], rtol=0, atol=0, equal_nan=True)
     h64, g64 = krig_normals_indexed_ref(idx, dist.double(), mask, table.double(), cell.double(),
-                                        pairs, not per_month, weight_kernel=weight_kernel)
+                                        pairs, not per_month, **kw)
     head, gains, whead, wgains, h64, g64 = (
         t.cpu().numpy() for t in (head, gains, whead, wgains, h64, g64))
     np.testing.assert_array_equal(head[..., 2], whead[..., 2])
@@ -129,14 +143,14 @@ def test_krig_normals_indexed_kernel_matches_plain(dev, k, C, per_month, weight_
     cell_ok = ok.reshape(12, 2, C).all(1) if per_month else ok.all(0)[None]
     atol_n = 2e-3 if k > 32 else 1e-3
 
-    def close(got, want, ref, rtol, atol):
-        """Within the parity tolerance; below k = 16, where the float32 trend
-        design is too ill-conditioned for that (two float32 runs part by up
-        to 0.1 C), a float64 run of the plain version decides instead: the
-        kernel's mean and 95th-percentile distance from it are at most twice
-        the plain version's plus the parity atol, and no value parts from the
-        plain version by more than 0.1."""
-        if k >= 16 or got.size == 0:
+    def close(got, want, ref, rtol, atol, size):
+        """Within the parity tolerance; below ``size`` = 16 slots, where the
+        float32 trend design is too ill-conditioned for that (two float32
+        runs part by up to 0.1 C), a float64 run of the plain version decides
+        instead: the kernel's mean and 95th-percentile distance from it are
+        at most twice the plain version's plus the parity atol, and no value
+        parts from the plain version by more than 0.1."""
+        if size >= 16 or got.size == 0:
             np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
             return
         d_kern, d_plain = np.abs(got - ref), np.abs(want - ref)
@@ -145,14 +159,13 @@ def test_krig_normals_indexed_kernel_matches_plain(dev, k, C, per_month, weight_
         assert np.abs(got - want).max() <= 0.1
 
     for col in (0, 3):
-        close(head[..., col][ok], whead[..., col][ok], h64[..., col][ok], 1e-4, atol_n)
+        close(head[..., col][ok], whead[..., col][ok], h64[..., col][ok], 1e-4, atol_n, kn_)
     np.testing.assert_allclose(head[..., 1][ok], whead[..., 1][ok], rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(head[..., 4:7], whead[..., 4:7], rtol=1e-4, atol=1e-5)
-    close(gains[cell_ok], wgains[cell_ok], g64[cell_ok], 1e-4, 1e-5)
-    assert (gains[~mask.cpu().numpy()] == 0.0).all()
+    close(gains[cell_ok], wgains[cell_ok], g64[cell_ok], 1e-4, 1e-5, ka)
+    assert (gains[~mask.cpu().numpy()] == 0.0).all() and (gains[..., ka:] == 0.0).all()
     # int32 indices and a single system give the same bits
-    head32, _ = krig_normals_indexed(args[0].int(), *args[1:], pairs[5:6], not per_month,
-                                     weight_kernel=weight_kernel)
+    head32, _ = krig_normals_indexed(args[0].int(), *args[1:], pairs[5:6], not per_month, **kw)
     np.testing.assert_array_equal(head32.cpu().numpy()[0], head[5])
 
 

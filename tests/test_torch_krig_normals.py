@@ -7,14 +7,17 @@ version. The JAX side is the Pallas kernel ``krig_normals_fused`` in
 interpret mode, system by system on planes laid out here in numpy from the
 same neighbourhoods and tables, and the jnp path ``krig_normals`` +
 ``anomaly_gain_rows``. Tolerances: normal and trend rtol 1e-4, atol 1e-3
-(2e-3 at k > 32; at k = 8 a float64 run of the port's plain version decides,
-with a 0.1 C cap, see ``_assert_rows``); variance rtol 1e-3, atol 1e-4;
+(2e-3 at k > 32; below 16 slots, k = 8 or k_normal = 12, a float64 run of the
+port's plain version decides, with a 0.1 C cap, see ``_assert_rows``); variance rtol 1e-3, atol 1e-4;
 variogram and gains rtol 1e-4, atol 1e-5; ok flags identical. The JAX
 kernel's Taylor asin differs from the exact asin by under 1e-6 relative,
 which is inert here.
 
-And the tile step with per-variable neighbourhood sizes (one call of the
-indexed entry a variable) against the JAX package's step with
+The indexed entry's two sizes: systems on the first ``k_normal`` slots
+against the JAX kernel on the mask cut there, gain rows on the first
+``k_anom`` against JAX ``anomaly_gain_rows`` on that prefix. And the tile
+step with per-variable neighbourhood sizes (one call of the indexed entry
+for each (k, ka) pair) against the JAX package's step with
 ``tests/test_torch_point.py``'s tolerances.
 """
 
@@ -133,28 +136,47 @@ def _planes(idx, dist, mask, table, cell, m, v):
 
 
 @pytest.mark.parametrize("per_month", [False, True], ids=["shared", "per_month"])
-@pytest.mark.parametrize("k", [8, 32, 40])
-def test_indexed_matches_pallas_kernel_interpret(k, per_month):
+@pytest.mark.parametrize("k, k_normal, k_anom", [
+    pytest.param(8, None, None, id="8"), pytest.param(32, None, None, id="32"),
+    pytest.param(40, None, None, id="40"), pytest.param(32, 24, 24, id="32-n24-a24"),
+    pytest.param(32, 32, 8, id="32-n32-a8"), pytest.param(16, 12, 16, id="16-n12-a16"),
+    pytest.param(32, 12, 16, id="32-n12-a16"),
+])
+def test_indexed_matches_pallas_kernel_interpret(k, k_normal, k_anom, per_month):
+    """Heads against the JAX kernel on the mask cut at ``k_normal``; gains
+    against the JAX kernel's at the full sizes and against JAX
+    ``anomaly_gain_rows`` on the ``k_anom``-slot prefix otherwise, 0 beyond."""
     C = 128  # the JAX kernel takes batches in multiples of 128
     idx, dist, mask, table, cell = _indexed_case(4, C, k, per_month)
     pairs = [(0, 0), (5, 1), (11, 0), (11, 1), (5, 0)]
+    sizes = dict(k_normal=k_normal, k_anom=k_anom)
     head, gains = kn.krig_normals_indexed(
         torch.from_numpy(idx), torch.from_numpy(dist), torch.from_numpy(mask),
-        torch.from_numpy(table), torch.from_numpy(cell), pairs, not per_month)
+        torch.from_numpy(table), torch.from_numpy(cell), pairs, not per_month, **sizes)
     assert head.shape == (len(pairs), C, 8) and gains.shape == (idx.shape[0], C, k)
     h64, g64 = kn.krig_normals_indexed(
         torch.from_numpy(idx), torch.from_numpy(dist).double(), torch.from_numpy(mask),
-        torch.from_numpy(table).double(), torch.from_numpy(cell).double(), pairs, not per_month)
+        torch.from_numpy(table).double(), torch.from_numpy(cell).double(), pairs, not per_month,
+        **sizes)
     assert kn.krig_normals_indexed.launches == 0  # CPU tensors: the plain version
     assert not (head[:, 3, 2] > 0.5).any()  # too few neighbours: not ok
+    kn_, ka = k_normal or k, k_anom or k
+    mask_n = mask & (np.arange(k) < kn_)
     for p, (m, v) in enumerate(pairs):
         n = m if per_month else 0
-        want = np.asarray(jax_krig_fused(
-            *map(jnp.asarray, _planes(idx[n], dist[n], mask[n], table, cell, m, v)),
+        want = np.array(jax_krig_fused(
+            *map(jnp.asarray, _planes(idx[n], dist[n], mask_n[n], table, cell, m, v)),
             interpret=True))
+        if (kn_, ka) != (k, k):
+            want[8:] = 0.0
+            want[8:8 + ka] = np.asarray(jax_gain_rows(
+                jnp.asarray(dist[n][:, :ka]), jnp.asarray(mask[n][:, :ka]),
+                jnp.asarray(table[idx[n][:, :ka]][..., [0, 2, 3]]),
+                jnp.asarray(cell[:, [0, 2, 3]]))).T
         got = np.concatenate([head[p].numpy().T, gains[n].numpy().T])
-        _assert_rows(got, want, k, np.concatenate([h64[p].numpy().T, g64[n].numpy().T]))
+        _assert_rows(got, want, kn_, np.concatenate([h64[p].numpy().T, g64[n].numpy().T]))
         assert (got[8:][~mask[n].T] == 0.0).all()  # masked slots carry no gain
+        assert (got[8 + ka:] == 0.0).all()  # nor slots beyond the anomaly prefix
 
 
 def _tensors(*arrays):
@@ -298,12 +320,17 @@ def test_indexed_refuses_bad_arguments():
         kn.krig_normals_indexed(*ok, [(0, 0)], True, weight_kernel="tricube")
     with pytest.raises(ValueError, match="systems"):
         kn.krig_normals_indexed(*ok, [(0, 0)] * 97, True)
+    for sizes in (dict(k_normal=0), dict(k_normal=9), dict(k_anom=0), dict(k_anom=9),
+                  dict(k_normal=9, k_anom=9)):
+        with pytest.raises(ValueError, match="must lie in 1..8"):
+            kn.krig_normals_indexed(*ok, [(0, 0)], True, **sizes)
 
 
 @pytest.mark.parametrize("shared_validity", [True, False])
 def test_tile_step_with_per_variable_k_matches_jax(shared_validity):
-    """``k_per_var`` / ``ka_per_var``: each (month, variable) system is
-    masked beyond its own k and takes the plane entry. Against the JAX
+    """``k_per_var`` / ``ka_per_var``: each (month, variable) system reads
+    the slots below its own k, and each variable's gain rows its own ka
+    slots, one call of the indexed entry for each (k, ka) pair. Against the JAX
     package's step: normals within 2e-3 C on 99 % and 1e-2 C on all, dailies
     5e-3 C / 1e-2 C, se within 2e-3 C (``tests/test_torch_point.py``'s)."""
     world = make_world(np.random.default_rng(7), nrows=40, ncols=40, n_stations=110, ndays=59)

@@ -122,8 +122,9 @@ def test_pair_flat_matches_jax(case, shared_validity):
 @pytest.mark.parametrize("shared_validity", [True, False])
 def test_pair_flat_with_per_variable_k_matches_jax(case, shared_validity):
     """``k_per_var`` / ``ka_per_var`` on the fixed-lattice flat form: each
-    variable's kriging systems are masked beyond its own k and its gain rows
-    end at its own ka, and one packed daily call serves both. Against the
+    variable's kriging systems read the slots below its own k and its gain
+    rows those below its own ka (one indexed call for each (k, ka) pair), and
+    one packed daily call serves both. Against the
     JAX package's flat step: identical sentinels; dailies and normals within
     one step + 5e-3 C on 99 % of values and one step + 2e-2 C on all (below
     k = 16 the float32 trend design parts two implementations by more than

@@ -8,8 +8,9 @@ pads each month to ``dpm`` day slots, so station anomalies arrive as
 (12, S, dpm).
 
 Every form runs the same kriging half (``_krig_tile_multi``): tables,
-neighbourhoods, and all 12 x V systems in one ``krig_normals_indexed`` call
-(one a variable with per-variable neighbourhood sizes). The daily half has
+neighbourhoods, and all 12 x V systems with their anomaly gain rows in one
+``krig_normals_indexed`` call (one for each distinct pair of per-variable
+neighbourhood and anomaly sizes). The daily half has
 two forms. The flat forms on a caller's fixed lattice (``fixed_scales``, the
 production mode) allocate the step's int16 buffer once and fill its daily
 rows with one ``scatter_daily_packed`` call, whatever the validity mode and
@@ -37,12 +38,10 @@ from topotpu_torch.core.config import InterpParams
 from topotpu_torch.core.dates import DaysMetadata
 from topotpu_torch.geo.distance import pairwise_great_circle_km, unit_xyz
 from topotpu_torch.geo.neighbors import select_neighbors
-from topotpu_torch.interp.anoms import anomaly_gain_rows
 from topotpu_torch.kernels.krig_normals import (
     cell_table,
     krig_normals_indexed,
     station_table,
-    system_columns,
 )
 from topotpu_torch.kernels.scatter_daily import (
     PACK_SENTINEL,
@@ -193,12 +192,12 @@ class _TileKrig(NamedTuple):
 
 
 def _var_sizes(params: InterpParams, V: int):
-    """(kvs, kas, uniform): each of the ``V`` variables' neighbourhood and
-    anomaly sizes, and whether one ``krig_normals_indexed`` call serves them
-    all (every variable at the full selection, one anomaly size)."""
+    """(kvs, kas): each of the ``V`` variables' neighbourhood and anomaly
+    sizes."""
     # Per-variable neighbourhood sizes: selection happens once at k_req (the
-    # max over variables); each variable masks the slots beyond its own k.
-    # top-k output is distance-sorted, so masked trailing slots are inert.
+    # max over variables); each variable's systems read the slots below its
+    # own k. top-k output is distance-sorted, so the slots left out are the
+    # farthest.
     k_req = params.k_neighbors
     kvs = (
         tuple(int(k) for k in params.k_per_var)
@@ -216,14 +215,14 @@ def _var_sizes(params: InterpParams, V: int):
         )
     if max(kvs) > k_req:
         raise ValueError("k_per_var entries must be <= k_neighbors")
-    return kvs, kas, kvs == (k_req,) * V and len(set(kas)) == 1
+    return kvs, kas
 
 
 def krig_launches(params: InterpParams, n_vars: int) -> int:
     """``krig_normals_indexed`` calls of one tile step for ``n_vars``
-    variables under ``params``: one, or one a variable with per-variable
-    sizes."""
-    return 1 if _var_sizes(params, n_vars)[2] else n_vars
+    variables under ``params``: one for each distinct pair of neighbourhood
+    and anomaly sizes."""
+    return len(set(zip(*_var_sizes(params, n_vars))))
 
 
 def _krig_tile_multi(
@@ -240,56 +239,35 @@ def _krig_tile_multi(
     selection, the station table and the anomaly gains (geometry only). Per
     variable: the kriging solve.
 
-    All kriging systems go through ``krig_normals_indexed``, which reads the
-    neighbourhoods as ``select_neighbors`` leaves them and gathers from the
-    station table itself. With one neighbourhood size for every variable
-    (the usual case) the 12 x V systems take one call; with per-variable
-    sizes (``k_per_var`` / ``ka_per_var``) each variable's 12 systems take
-    a call of their own, masked beyond that variable's k."""
+    All kriging systems and the gain rows go through
+    ``krig_normals_indexed``, which reads the neighbourhoods as
+    ``select_neighbors`` leaves them and gathers from the station table
+    itself. Variables with the same (k, ka) share a call: with one size pair
+    for every variable (the usual case) the 12 x V systems take one call;
+    with per-variable sizes (``k_per_var`` / ``ka_per_var``) each distinct
+    pair takes a call of its own."""
     V = len(all_vars)
-    k_req = params.k_neighbors
-
     table, cell_tab = tile_tables(inputs, all_vars)
-    nbrs = tile_neighborhoods(inputs, k_req, shared_validity)
-    kvs, kas, uniform = _var_sizes(params, V)
+    nbrs = tile_neighborhoods(inputs, params.k_neighbors, shared_validity)
+    kvs, kas = _var_sizes(params, V)
     solve_kw = dict(
         weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
     )
     idx, dist, mask = (torch.stack([getattr(n, f) for n in nbrs])
                        for f in ("idx", "dist", "mask"))
-    anom_cols = system_columns(table, cell_tab, 0, 0)  # month and variable play no part
-
-    def _gains_of(ka):
-        """(N, C, k) gain rows of the ka-slot prefix of every neighbourhood
-        (plain torch), from the three anomaly covariates of its stations;
-        0 beyond the prefix."""
-        rows = torch.stack([
-            anomaly_gain_rows(
-                nbr.dist[:, :ka], nbr.mask[:, :ka], anom_cols["acov"][nbr.idx[:, :ka]],
-                anom_cols["cell_acov"], weight_kernel=params.weight_kernel, ridge=params.ridge,
-            )
-            for nbr in nbrs
-        ])
-        return torch.nn.functional.pad(rows, (0, k_req - ka))
-
-    def _solve(v_list, mask_v):
-        """One call for the 12 systems of each variable of ``v_list`` ->
-        heads (len(v_list), 12, C, 8) and the neighbourhoods' gain rows."""
-        pairs = [(m, v) for v in v_list for m in range(12)]
-        head, gains = krig_normals_indexed(idx, dist, mask_v, table, cell_tab, pairs,
-                                           shared_validity, **solve_kw)
-        return head.view(len(v_list), 12, *head.shape[1:]), gains
-
-    if uniform:
-        head, gains = _solve(range(V), mask)
-        gains = (gains if kas[0] == k_req else _gains_of(kas[0]))[None]
-    else:
-        slots = torch.arange(k_req, device=table.device)
-        head = torch.cat([_solve([v], mask & (slots < kvs[v]))[0] for v in range(V)])
-        by_ka = {ka: _gains_of(ka) for ka in sorted(set(kas))}
-        gains = (by_ka[kas[0]][None] if len(by_ka) == 1
-                 else torch.stack([by_ka[ka] for ka in kas]))
+    groups = {}  # (k, ka) -> the variables that take them
+    for v, sizes in enumerate(zip(kvs, kas)):
+        groups.setdefault(sizes, []).append(v)
+    heads, gains = [None] * V, [None] * V
+    for (kn, ka), vs in groups.items():
+        pairs = [(m, v) for v in vs for m in range(12)]
+        head, g = krig_normals_indexed(idx, dist, mask, table, cell_tab, pairs,
+                                       shared_validity, k_normal=kn, k_anom=ka, **solve_kw)
+        for j, v in enumerate(vs):
+            heads[v], gains[v] = head[12 * j:12 * (j + 1)], g
+    head = head.view(V, 12, *head.shape[1:]) if len(groups) == 1 else torch.stack(heads)
+    gains = gains[0][None] if len(set(kas)) == 1 else torch.stack(gains)
     return _TileKrig(
         normal=head[..., 0],
         se=torch.sqrt(torch.clamp(head[..., 1], min=0.0)),

@@ -36,10 +36,9 @@ import numpy as np
 import torch
 
 from topotpu_torch.core.config import InterpParams, PPCAParams
-from topotpu_torch.core.device import COMPUTE_DTYPE
 from topotpu_torch.geo.distance import unit_xyz
 from topotpu_torch.geo.neighbors import select_neighbors
-from topotpu_torch.interp.anoms import anomaly_gain_rows, predict_daily_gathered
+from topotpu_torch.interp.anoms import predict_daily_gathered
 from topotpu_torch.interp.convert import to_tensor
 from topotpu_torch.interp.point import _local_xy_km, group_days_by_month, month_layout
 from topotpu_torch.kernels.krig_normals import cell_table, krig_normals_indexed, station_table
@@ -84,16 +83,17 @@ def _loo_systems(st, k: int):
     )
 
 
-def _loo_normals(st, params: InterpParams):
+def _loo_normals(st, params: InterpParams, k_anom: int | None = None):
     """Every month's leave-one-out kriged normals at every station, in one
     call of ``krig_normals_indexed``. Returns the neighbourhoods, the normals
-    (12, S) and the ok flags (12, S)."""
+    (12, S), the ok flags (12, S) and the anomaly gain rows (12, S, k) of the
+    first ``k_anom`` slots (all k by default)."""
     nbrs, args = _loo_systems(st, params.k_neighbors)
-    head, _ = krig_normals_indexed(
-        *args, weight_kernel=params.weight_kernel, ridge=params.ridge,
+    head, gains = krig_normals_indexed(
+        *args, k_anom=k_anom, weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
     )
-    return nbrs, head[..., 0], head[..., 2] > 0.5
+    return nbrs, head[..., 0], head[..., 2] > 0.5, gains
 
 
 def xval_interp_normals(
@@ -106,7 +106,7 @@ def xval_interp_normals(
     """
     st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                    stn_valid)
-    _, normal, ok = _loo_normals(st, params)
+    _, normal, ok, _ = _loo_normals(st, params)
     errs = (normal.T - st["norm"]).cpu().numpy()
     oks = ok.T.cpu().numpy()
 
@@ -144,8 +144,9 @@ def xval_interp_daily(
 
     stn_anoms: (S, T) serially complete daily anomalies; month_idx: (T,).
     The anomaly neighbourhood is the distance-sorted prefix of
-    ``k_neighbors_anom`` slots of the normals one; its covariates are (elev,
-    x_km, y_km) at the pool-mean latitude, as on the tile path.
+    ``k_neighbors_anom`` slots of the normals one; its gain rows come from
+    the normals' launch, with covariates (elev, x_km, y_km) at the pool-mean
+    latitude, as on the tile path.
     """
     with span("xval.loo_daily", params.k_neighbors_anom):
         st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
@@ -153,23 +154,14 @@ def xval_interp_daily(
         layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
         anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
         anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
-        ref_lat = torch.tensor(float(np.mean(np.asarray(stn_lat))), dtype=COMPUTE_DTYPE,
-                               device=st["lat"].device)
-        sx, sy = _local_xy_km(st["lon"], st["lat"], ref_lat)
         ka = min(params.k_neighbors_anom, params.k_neighbors)
 
-        nbrs, normal, ok = _loo_normals(st, params)
-        preds = []
-        for m, nbr in enumerate(nbrs):
-            idx_a, dist_a, mask_a = nbr.idx[:, :ka], nbr.dist[:, :ka], nbr.mask[:, :ka]
-            g = anomaly_gain_rows(
-                dist_a, mask_a,
-                torch.stack([st["elev"][idx_a], sx[idx_a], sy[idx_a]], dim=-1),
-                torch.stack([st["elev"], sx, sy], dim=-1),
-                weight_kernel=params.weight_kernel, ridge=params.ridge,
-            )
-            preds.append(normal[m][:, None] + predict_daily_gathered(g, idx_a, mask_a,
-                                                                     anoms_g[m]))
+        nbrs, normal, ok, gains = _loo_normals(st, params, ka)
+        preds = [
+            normal[m][:, None] + predict_daily_gathered(
+                gains[m][:, :ka], nbr.idx[:, :ka], nbr.mask[:, :ka], anoms_g[m])
+            for m, nbr in enumerate(nbrs)
+        ]
         return _score_daily(preds, st["norm"], anoms_g, st["valid"], ok,
                             to_tensor(layout.day_valid, device, torch.bool))
 

@@ -73,7 +73,10 @@
 //       vario(12 x 3)], cell (C, 16) float32 [elev, tdi, x_km, y_km, lst(12)],
 //       the systems as host arrays of months and variables. With shared != 0,
 //       N = 1 and every system uses that neighbourhood; else neighbourhood n
-//       serves the systems of month n. 1 <= k <= 64.
+//       serves the systems of month n. 1 <= k <= 64. The systems use the
+//       first k_normal slots and the gain rows the first k_anom (each in
+//       1..k, each slot range with its own bandwidth); a gain row is 0 from
+//       slot k_anom on.
 //   krig_normals_gathered_launch  dist (C, k) float32, mask (C, k) bytes,
 //       xyz (C, k, 3), cov (C, k, q), cell_cov (C, q), norm (C, k),
 //       vario (C, k, 3), acov (C, k, qa), cell_acov (C, qa), all float32;
@@ -241,14 +244,40 @@ __device__ __forceinline__ float distance_weight(int kind, float d, float bw,
   return m;  // uniform
 }
 
+// Adaptive-bandwidth distance weights over the first n slots: the slot mask
+// m (0 from slot n on), the weights w and their warp sum. The bandwidth is
+// the largest masked distance of those slots.
+template <int R, class Src>
+__device__ __forceinline__ float prefix_weights(const Src& src,
+                                                const float (&d)[R], int n,
+                                                int lane, int weight_kernel,
+                                                float (&m)[R], float (&w)[R]) {
+  float dmax = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = lane + 32 * r < n ? src.mask(r) : 0.0f;
+    dmax = fmaxf(dmax, m[r] > 0.0f ? d[r] : 0.0f);
+  }
+  const float bw = fmaxf(warp_max(dmax), 1e-3f);
+  float ws = 0.0f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    w[r] = distance_weight(weight_kernel, d[r], bw, m[r]);
+    ws += w[r];
+  }
+  return warp_sum(ws) + 1e-30f;
+}
+
 // The whole chain for one (neighbourhood, cell), all its systems, by one
 // warp. Src says where the inputs lie and where the results go; ws is the
 // warp's workspace (krig::Layout<R>). MAXP - 1 bounds the covariates of a
-// design.
+// design. The systems read the first kn of the k slots and the gain rows the
+// first ka (1 <= kn, ka <= k): a slot beyond is masked.
 template <int R, int MAXP, class Src>
 __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
-                                          int k, int weight_kernel,
-                                          float ridge, float jitter_frac,
+                                          int k, int kn, int ka,
+                                          int weight_kernel, float ridge,
+                                          float jitter_frac,
                                           int min_neighbors) {
   using L = krig::Layout<R>;
   constexpr int K = L::K;
@@ -259,22 +288,9 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
 
   // ---- once: adaptive-bandwidth distance weights -------------------------
   float m[R], d[R], w[R];
-  float dmax = 0.0f;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const bool in = lane + 32 * r < k;
-    m[r] = in ? src.mask(r) : 0.0f;
-    d[r] = in ? src.dist(r) : 0.0f;
-    dmax = fmaxf(dmax, m[r] > 0.0f ? d[r] : 0.0f);
-  }
-  const float bw = fmaxf(warp_max(dmax), 1e-3f);
-  float ws_ = 0.0f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    w[r] = distance_weight(weight_kernel, d[r], bw, m[r]);
-    ws_ += w[r];
-  }
-  const float wsum = warp_sum(ws_) + 1e-30f;
+  for (int r = 0; r < R; ++r) d[r] = lane + 32 * r < k ? src.dist(r) : 0.0f;
+  float wsum = prefix_weights<R>(src, d, kn, lane, weight_kernel, m, w);
 
   // ---- once: pair distances, folded (xyz staged in the matrix's place) ---
 #pragma unroll
@@ -401,7 +417,10 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
     __syncwarp();  // the back substitution has read L before sA is rebuilt
   }
 
-  // ---- once: anomaly-GWR gain rows on the same neighbourhood and weights -
+  // ---- once: anomaly-GWR gain rows on the first ka slots -----------------
+  // With ka == kn they take the systems' weights, else the prefix's own
+  // (the branch is uniform over the warp).
+  if (ka != kn) wsum = prefix_weights<R>(src, d, ka, lane, weight_kernel, m, w);
   const int qa = src.qa();
   const int pa = qa + 1;
 #pragma unroll
@@ -421,7 +440,7 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
 #pragma unroll
       for (int i = 1; i < MAXP; ++i)
         if (i < pa) gx += b[i] * X[i][r];
-      src.put_gain(r, w[r] * gx);
+      src.put_gain(r, lane + 32 * r < ka ? w[r] * gx : 0.0f);
     }
   }
 }
@@ -547,8 +566,8 @@ krig_normals_indexed_kernel(
     const unsigned char* __restrict__ mask, const float* __restrict__ table,
     int S, int F, const float* __restrict__ cell,
     const __grid_constant__ Systems sys, int shared, float* __restrict__ head,
-    float* __restrict__ gains, int N, int C, int k, int weight_kernel,
-    float ridge, float jitter_frac, int min_neighbors) {
+    float* __restrict__ gains, int N, int C, int k, int k_normal, int k_anom,
+    int weight_kernel, float ridge, float jitter_frac, int min_neighbors) {
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -583,7 +602,8 @@ krig_normals_indexed_kernel(
   src.shared = shared;
   krig_cell<R, 4>(src,
                   reinterpret_cast<float*>(smem4) + warp * krig::Layout<R>::FLOATS,
-                  lane, k, weight_kernel, ridge, jitter_frac, min_neighbors);
+                  lane, k, k_normal, k_anom, weight_kernel, ridge, jitter_frac,
+                  min_neighbors);
 }
 
 template <int R, int MAXP>
@@ -614,7 +634,8 @@ krig_normals_gathered_kernel(const __grid_constant__ GatheredArgs a) {
   src.nqa = a.qa;
   krig_cell<R, MAXP>(
       src, reinterpret_cast<float*>(smem4) + warp * krig::Layout<R>::FLOATS,
-      lane, a.k, a.weight_kernel, a.ridge, a.jitter_frac, a.min_neighbors);
+      lane, a.k, a.k, a.k, a.weight_kernel, a.ridge, a.jitter_frac,
+      a.min_neighbors);
 }
 
 bool bad_common(int k, int weight_kernel) {
@@ -626,8 +647,8 @@ cudaError_t launch_indexed(const void* idx, int idx64, const float* dist,
                            const unsigned char* mask, const float* table,
                            int S, int F, const float* cell, const Systems& sys,
                            int shared, float* head, float* gains, int N, int C,
-                           int k, int weight_kernel, float ridge,
-                           float jitter_frac, int min_neighbors,
+                           int k, int k_normal, int k_anom, int weight_kernel,
+                           float ridge, float jitter_frac, int min_neighbors,
                            cudaStream_t stream) {
   size_t bytes;
   cudaError_t err =
@@ -639,7 +660,8 @@ cudaError_t launch_indexed(const void* idx, int idx64, const float* dist,
   krig_normals_indexed_kernel<R>
       <<<grid, 32 * krig::WARPS_PER_BLOCK, bytes, stream>>>(
           idx, idx64, dist, mask, table, S, F, cell, sys, shared, head, gains,
-          N, C, k, weight_kernel, ridge, jitter_frac, min_neighbors);
+          N, C, k, k_normal, k_anom, weight_kernel, ridge, jitter_frac,
+          min_neighbors);
   return cudaGetLastError();
 }
 
@@ -669,9 +691,10 @@ extern "C" int krig_normals_indexed_launch(
     const void* idx, int idx64, const void* dist, const void* mask,
     const void* table, int S, int F, const void* cell, const int* months,
     const int* vars, int n_systems, int shared, void* head, void* gains, int N,
-    int C, int k, float ridge, float jitter_frac, int min_neighbors,
-    int weight_kernel, void* stream) {
-  if (bad_common(k, weight_kernel) || N < 1 || C < 0 || S < 1 ||
+    int C, int k, int k_normal, int k_anom, float ridge, float jitter_frac,
+    int min_neighbors, int weight_kernel, void* stream) {
+  if (bad_common(k, weight_kernel) || k_normal < 1 || k_normal > k ||
+      k_anom < 1 || k_anom > k || N < 1 || C < 0 || S < 1 ||
       n_systems < 0 || n_systems > MAX_SYSTEMS || F < T_VAR ||
       (F - T_VAR) % T_VAR_COLS != 0 || (shared && N != 1) ||
       (!shared && N != 12))
@@ -692,7 +715,7 @@ extern "C" int krig_normals_indexed_launch(
       static_cast<const float*>(table), S, F,                                \
       static_cast<const float*>(cell), sys, shared,                          \
       static_cast<float*>(head), static_cast<float*>(gains), N, C, k,        \
-      weight_kernel, ridge, jitter_frac, min_neighbors,                      \
+      k_normal, k_anom, weight_kernel, ridge, jitter_frac, min_neighbors,    \
       static_cast<cudaStream_t>(stream)
   const cudaError_t err =
       k <= 32 ? launch_indexed<1>(KI_ARGS) : launch_indexed<2>(KI_ARGS);

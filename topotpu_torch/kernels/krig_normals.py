@@ -14,7 +14,10 @@ from gathered (rows, B) planes. This entry takes the neighbourhoods as
 ``cell_table``), and the list of (month, variable) systems to solve, and
 covers them all in one launch. With ``shared`` there is one neighbourhood
 (N = 1) for every system; without, neighbourhood n serves the systems of
-month n (N = 12). It returns the heads (P, C, 8) and the gains (N, C, k).
+month n (N = 12). The systems use the first ``k_normal`` slots of each
+neighbourhood and the gain rows the first ``k_anom`` (both k by default). It
+returns the heads (P, C, 8) and the gains (N, C, k), 0 from slot ``k_anom``
+on.
 
 ``krig_normals_gathered`` is the same kernel's other entry: one system a
 cell from gathered (C, k, ...) operands laid out as
@@ -58,7 +61,7 @@ _INDEXED_ARGTYPES = (
     (ctypes.c_void_p, ctypes.c_int) + (ctypes.c_void_p,) * 3
     + (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 3
     + (ctypes.c_int, ctypes.c_int) + (ctypes.c_void_p,) * 2
-    + (ctypes.c_int,) * 3 + (ctypes.c_float, ctypes.c_float)
+    + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_float)
     + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 )
 GATHERED = ("dist", "mask", "nbr_xyz", "nbr_cov", "cell_cov", "nbr_norm", "nbr_vario",
@@ -133,14 +136,18 @@ def _gains(w, acov, cell_acov, ridge) -> torch.Tensor:
     return batched_gwr_gain(Xa, w, xa0, ridge)
 
 
-def _indexed_args(idx, dist, mask, table, cell, pairs, shared):
-    """Shapes of the indexed entry's arguments, checked: (N, C, k, V, pairs)."""
+def _indexed_args(idx, dist, mask, table, cell, pairs, shared, k_normal, k_anom):
+    """Shapes and sizes of the indexed entry's arguments, checked: (N, C, k,
+    V, pairs, k_normal, k_anom), the two sizes k where they are None."""
     what = "krig_normals_indexed"
     if idx.dim() != 3 or dist.shape != idx.shape or mask.shape != idx.shape:
         raise ValueError(f"{what}: idx, dist and mask must share one (N, C, k) shape")
     N, C, k = idx.shape
     if not 1 <= k <= 64:
         raise ValueError(f"{what}: k={k} outside 1..64")
+    k_normal, k_anom = (k if size is None else int(size) for size in (k_normal, k_anom))
+    if not (1 <= k_normal <= k and 1 <= k_anom <= k):
+        raise ValueError(f"{what}: k_normal={k_normal} and k_anom={k_anom} must lie in 1..{k}")
     if N != (1 if shared else 12):
         raise ValueError(f"{what}: {N} neighbourhoods, expected {1 if shared else 12}")
     if table.dim() != 2 or table.shape[1] < TABLE_BASE or (
@@ -155,11 +162,12 @@ def _indexed_args(idx, dist, mask, table, cell, pairs, shared):
         raise ValueError(f"{what}: {len(pairs)} systems, at most {MAX_SYSTEMS} a call")
     if any(not (0 <= m < 12 and 0 <= v < V) for m, v in pairs):
         raise ValueError(f"{what}: a (month, variable) pair outside 12 x {V}")
-    return N, C, k, V, pairs
+    return N, C, k, V, pairs, k_normal, k_anom
 
 
 def krig_normals_indexed_ref(
-    idx, dist, mask, table, cell, pairs, shared: bool,
+    idx, dist, mask, table, cell, pairs, shared: bool, *,
+    k_normal: int | None = None, k_anom: int | None = None,
     ridge: float = 1e-6, jitter_frac: float = 1e-5, min_neighbors: int = 3,
     weight_kernel: str = "bisquare",
 ):
@@ -167,22 +175,28 @@ def krig_normals_indexed_ref(
     (P, C, 8) and gains (N, C, k), computed with the port's batched torch
     modules in the dtype of the tables. Each neighbourhood's table rows are
     gathered once, with the indices clamped into the table as the kernel
-    clamps them."""
-    N, C, _, _, pairs = _indexed_args(idx, dist, mask, table, cell, pairs, shared)
+    clamps them. The systems see the mask cut at ``k_normal``; the gain rows
+    are those of the ``k_anom``-slot prefix (``anomaly_gain_rows`` on it),
+    padded with 0."""
+    N, C, k, _, pairs, k_normal, k_anom = _indexed_args(
+        idx, dist, mask, table, cell, pairs, shared, k_normal, k_anom)
     last = table.shape[0] - 1
     heads = [None] * len(pairs)
     gains = []
     for n in range(N):
         G = table[idx[n].long().clamp(0, last)]  # (C, k, F)
         d, msk = dist[n].to(table.dtype), mask[n].bool()
-        w = distance_weights(d, msk, weight_kernel)
-        c = system_columns(G, cell, 0, 0)
-        gains.append(_gains(w, c["acov"], c["cell_acov"], ridge))
+        mn = msk & (torch.arange(k, device=msk.device) < k_normal)
+        w = distance_weights(d, mn, weight_kernel)
+        wa = distance_weights(d[:, :k_anom], msk[:, :k_anom], weight_kernel)
+        c = system_columns(G[:, :k_anom], cell, 0, 0)
+        gains.append(torch.nn.functional.pad(_gains(wa, c["acov"], c["cell_acov"], ridge),
+                                             (0, k - k_anom)))
         for p, (m, v) in enumerate(pairs):
             if not shared and m != n:
                 continue
             c = system_columns(G, cell, m, v)
-            heads[p] = _head(d, msk, w, c["xyz"], c["cov"], c["cell_cov"], c["norm"],
+            heads[p] = _head(d, mn, w, c["xyz"], c["cov"], c["cell_cov"], c["norm"],
                              c["vario"], ridge, jitter_frac, min_neighbors)
     head = (torch.stack(heads) if heads
             else table.new_zeros((0, C, OUT_EXTRA)))
@@ -198,6 +212,9 @@ def krig_normals_indexed(
     pairs,                # the (month, variable) systems to solve
     shared: bool,         # one neighbourhood for every system (N = 1), or
                           # neighbourhood n for the systems of month n (N = 12)
+    *,
+    k_normal: int | None = None,  # slots the systems use (the first k_normal), k if None
+    k_anom: int | None = None,    # slots the gain rows use (the first k_anom), k if None
     ridge: float = 1e-6,
     jitter_frac: float = 1e-5,
     min_neighbors: int = 3,
@@ -208,17 +225,22 @@ def krig_normals_indexed(
     outside the table is clamped to its first or last row, by the kernel and
     by the plain version alike (neither reads ``idx`` back to the host to
     check it; a ``jnp`` gather clamps the same way). In a masked slot the row
-    read is inert; in a valid slot the system is solved with that row."""
+    read is inert; in a valid slot the system is solved with that row.
+
+    The systems read the slots below ``k_normal``: weights, bandwidth and
+    solve are those of the mask cut there. The gain rows are those of the
+    ``k_anom``-slot prefix, with its own weights and bandwidth, and 0 from
+    slot ``k_anom`` on; heads do not depend on ``k_anom``."""
     what = "krig_normals_indexed"
     args = (idx, dist, mask, table, cell)
     dev = _build.common_device(what, *args)
     if weight_kernel not in WEIGHT_KERNELS:
         raise ValueError(f"unknown weight kernel {weight_kernel!r}")
-    kw = dict(ridge=ridge, jitter_frac=jitter_frac, min_neighbors=min_neighbors,
-              weight_kernel=weight_kernel)
+    kw = dict(k_normal=k_normal, k_anom=k_anom, ridge=ridge, jitter_frac=jitter_frac,
+              min_neighbors=min_neighbors, weight_kernel=weight_kernel)
     if dev.type == "cpu":
         return krig_normals_indexed_ref(*args, pairs, shared, **kw)
-    N, C, k, _, pairs = _indexed_args(*args, pairs, shared)
+    N, C, k, _, pairs, k_normal, k_anom = _indexed_args(*args, pairs, shared, k_normal, k_anom)
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"{what}: idx is {idx.dtype}, expected int32 or int64")
     f32 = torch.float32
@@ -239,8 +261,8 @@ def krig_normals_indexed(
             idx.data_ptr(), int(idx.dtype == torch.int64), dist.data_ptr(), mask.data_ptr(),
             table.data_ptr(), S, F, cell.data_ptr(),
             ctypes.cast(months, ctypes.c_void_p), ctypes.cast(variables, ctypes.c_void_p),
-            P, int(bool(shared)), head.data_ptr(), gains.data_ptr(), N, C, k,
-            ridge, jitter_frac, min_neighbors, WEIGHT_KERNELS.index(weight_kernel),
+            P, int(bool(shared)), head.data_ptr(), gains.data_ptr(), N, C, k, k_normal,
+            k_anom, ridge, jitter_frac, min_neighbors, WEIGHT_KERNELS.index(weight_kernel),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, what)
