@@ -375,17 +375,25 @@ def stations():
 
 
 def test_nnghs_anoms_records_one_loo_daily_a_candidate_with_fetch_and_score(stations):
+    """The sweep's inputs are made once (one ``xval.daily_inputs``, keyed by
+    the candidates it serves, holding the 12 months' selections), then one
+    ``xval.loo_daily`` a candidate holds its scoring and its one fetch."""
     with prof.recording() as got:
         optimize_nnghs_anoms(*stations.krig(), stations.anoms, stations.month_idx,
                              candidates=(8, 12, 16), base_params=InterpParams(k_neighbors=16),
                              device=CPU)
     (sweep,) = [r for r in got if r.name == "xval.sweep_anoms"]
+    (inputs,) = _children(got, sweep, "xval.daily_inputs")
+    assert inputs.key == 3
+    assert [c.name for c in _children(got, inputs)] == ["geo.select_neighbors"] * 12
+    assert sum(r.name == "geo.select_neighbors" for r in got) == 12
     loo = _children(got, sweep, "xval.loo_daily")
     assert sorted(r.key for r in loo) == [8, 12, 16]
+    assert all(inputs.t1 <= r.t0 for r in loo)
     for r in loo:
         kids = [c.name for c in _children(got, r)]
         assert kids.count("xval.fetch") == 1 and kids.count("xval.score") == 1
-        assert kids.count("geo.select_neighbors") == 12
+        assert "geo.select_neighbors" not in kids
 
 
 def test_krig_params_records_one_variogram_fit_a_month(stations):

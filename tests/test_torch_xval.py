@@ -25,6 +25,7 @@ percentile, within 50 % + 1e-4 C. Monthly MAE, bias and R^2 within
 the same k.
 """
 
+import dataclasses
 import types
 import warnings
 
@@ -332,3 +333,68 @@ def test_xval_interp_daily_fetches_once(st, monkeypatch):
                                   InterpParams(k_neighbors=16, k_neighbors_anom=8), "cpu")
     assert sizes == [len(st.lon) + 15]
     assert np.isfinite(got["mae"]) and got["per_station_mae"].shape == (len(st.lon),)
+
+
+# --------------------------------------- the anomaly sweep's inputs, made once
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_nnghs_anoms_sweep_equals_one_daily_xval_a_candidate(st, device):
+    """The sweep makes its inputs once and runs each ka on them: its MAEs,
+    per-station MAEs and choices are, bit for bit, those of one
+    ``xval_interp_daily`` call a candidate, each making its own inputs."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = InterpParams(k_neighbors=16)
+    regions = (st.lat > st.lat.mean()).astype(int)
+    cands = (8, 12, 16)
+    got = txval.optimize_nnghs_anoms(*st.krig(), st.anoms, st.month_idx, candidates=cands,
+                                     region_labels=regions, base_params=base, device=device)
+    want = {ka: txval.xval_interp_daily(*st.krig(), st.anoms, st.month_idx,
+                                        dataclasses.replace(base, k_neighbors_anom=ka), device)
+            for ka in cands}
+    assert sorted(got["mae"]) == sorted(got["per_station_mae"]) == list(cands)
+    for ka in cands:
+        assert np.isfinite(want[ka]["mae"]) and got["mae"][ka] == want[ka]["mae"], ka
+        np.testing.assert_array_equal(got["per_station_mae"][ka], want[ka]["per_station_mae"])
+    best = {}
+    for r in (0, 1):
+        scores = {ka: txval._mean_se(w["per_station_mae"][regions == r]) for ka, w in want.items()}
+        assert None not in scores.values()
+        best[r] = txval._pick_k(scores, 16, True)
+    assert got["best"] == best
+
+
+@pytest.mark.parametrize("route", ["sweep", "single"])
+def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
+    """A three-candidate sweep groups the anomalies once and selects the 12
+    months' neighbourhoods once, as one ``xval_interp_daily`` call does;
+    each candidate still brings back one transfer of S + 15 values."""
+    calls = {"group_days_by_month": 0, "select_neighbors": 0}
+    sizes = []
+
+    def counting(name):
+        fn = getattr(txval, name)
+
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    cpu = torch.Tensor.cpu
+
+    def fetched(self, *a, **kw):
+        sizes.append(self.numel())
+        return cpu(self, *a, **kw)
+
+    for name in calls:
+        monkeypatch.setattr(txval, name, counting(name))
+    monkeypatch.setattr(torch.Tensor, "cpu", fetched)
+    base = InterpParams(k_neighbors=16, k_neighbors_anom=8)
+    if route == "sweep":
+        txval.optimize_nnghs_anoms(*st.krig(), st.anoms, st.month_idx, candidates=(8, 12, 16),
+                                   base_params=base, device="cpu")
+    else:
+        txval.xval_interp_daily(*st.krig(), st.anoms, st.month_idx, base, "cpu")
+    assert calls == {"group_days_by_month": 1, "select_neighbors": 12}
+    assert sizes == [len(st.lon) + 15] * (3 if route == "sweep" else 1)

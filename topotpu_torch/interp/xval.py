@@ -20,7 +20,11 @@ in the JAX package. The 12 months' normals run through one call of
 ``kernels.krig_normals.krig_normals_indexed`` (the CUDA ``krig_normals``
 kernel on the card, one launch per x-val run), the stations being both the
 station table's rows and the cells. Inputs are numpy station arrays; they go
-to ``device`` once and the results stay there. The normals' x-val brings its
+to ``device`` once and the results stay there. What the daily x-val's runs
+share whatever their ka (the station tensors, the month-grouped anomalies,
+the 12 neighbourhoods and tables at the normals k) is made once a sweep
+(``_daily_inputs``), then each ka is one launch, its contractions and its
+scoring (``_loo_daily``). The normals' x-val brings its
 (S, 12) errors back for the numpy scoring, which is the JAX package's; the
 daily x-val scores its predictions on ``device`` in their month-grouped
 layout (``_score_daily``) and brings back only the per-station MAEs and 15
@@ -83,17 +87,16 @@ def _loo_systems(st, k: int):
     )
 
 
-def _loo_normals(st, params: InterpParams, k_anom: int | None = None):
+def _loo_normals(args, params: InterpParams, k_anom: int | None = None):
     """Every month's leave-one-out kriged normals at every station, in one
-    call of ``krig_normals_indexed``. Returns the neighbourhoods, the normals
-    (12, S), the ok flags (12, S) and the anomaly gain rows (12, S, k) of the
-    first ``k_anom`` slots (all k by default)."""
-    nbrs, args = _loo_systems(st, params.k_neighbors)
+    call of ``krig_normals_indexed`` on ``_loo_systems``' arguments ``args``.
+    Returns the normals (12, S), the ok flags (12, S) and the anomaly gain
+    rows (12, S, k) of the first ``k_anom`` slots (all k by default)."""
     head, gains = krig_normals_indexed(
         *args, k_anom=k_anom, weight_kernel=params.weight_kernel, ridge=params.ridge,
         jitter_frac=params.chol_jitter, min_neighbors=params.min_neighbors,
     )
-    return nbrs, head[..., 0], head[..., 2] > 0.5, gains
+    return head[..., 0], head[..., 2] > 0.5, gains
 
 
 def xval_interp_normals(
@@ -106,7 +109,8 @@ def xval_interp_normals(
     """
     st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                    stn_valid)
-    _, normal, ok, _ = _loo_normals(st, params)
+    _, args = _loo_systems(st, params.k_neighbors)
+    normal, ok, _ = _loo_normals(args, params)
     errs = (normal.T - st["norm"]).cpu().numpy()
     oks = ok.T.cpu().numpy()
 
@@ -148,22 +152,44 @@ def xval_interp_daily(
     the normals' launch, with covariates (elev, x_km, y_km) at the pool-mean
     latitude, as on the tile path.
     """
-    with span("xval.loo_daily", params.k_neighbors_anom):
+    inputs = _daily_inputs(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm,
+                           stn_vario, stn_valid, stn_anoms, month_idx, params.k_neighbors, 1)
+    return _loo_daily(inputs, params)
+
+
+def _daily_inputs(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
+                  stn_valid, stn_anoms, month_idx, k: int, runs: int):
+    """What every daily leave-one-out run over these stations shares,
+    whatever its ka, on ``device``: the station tensors, the anomalies
+    grouped by month (12, S, dpm), the slots that hold a day (12, dpm), and
+    ``_loo_systems`` at the normals ``k``. ``runs``, the number of runs it
+    serves, keys its span."""
+    with span("xval.daily_inputs", runs):
         st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                        stn_valid)
         layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
         anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
         anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
-        ka = min(params.k_neighbors_anom, params.k_neighbors)
+        nbrs, args = _loo_systems(st, k)
+        return types.SimpleNamespace(st=st, anoms_g=anoms_g, nbrs=nbrs, args=args,
+                                     day_valid=to_tensor(layout.day_valid, device, torch.bool))
 
-        nbrs, normal, ok, gains = _loo_normals(st, params, ka)
+
+def _loo_daily(inputs, params: InterpParams) -> dict:
+    """One daily leave-one-out run on ``_daily_inputs``' ``inputs`` (made at
+    ``params.k_neighbors``): the normals and the gain rows of the first
+    ``k_neighbors_anom`` slots in one launch, each month's gathered
+    contraction on that prefix of the shared neighbourhoods, the scores."""
+    with span("xval.loo_daily", params.k_neighbors_anom):
+        ka = min(params.k_neighbors_anom, params.k_neighbors)
+        normal, ok, gains = _loo_normals(inputs.args, params, ka)
         preds = [
             normal[m][:, None] + predict_daily_gathered(
-                gains[m][:, :ka], nbr.idx[:, :ka], nbr.mask[:, :ka], anoms_g[m])
-            for m, nbr in enumerate(nbrs)
+                gains[m][:, :ka], nbr.idx[:, :ka], nbr.mask[:, :ka], inputs.anoms_g[m])
+            for m, nbr in enumerate(inputs.nbrs)
         ]
-        return _score_daily(preds, st["norm"], anoms_g, st["valid"], ok,
-                            to_tensor(layout.day_valid, device, torch.bool))
+        return _score_daily(preds, inputs.st["norm"], inputs.anoms_g, inputs.st["valid"], ok,
+                            inputs.day_valid)
 
 
 def _score_daily(preds, norm, anoms_g, valid, ok, day_valid) -> dict:
@@ -335,14 +361,15 @@ def optimize_nnghs_anoms(
         base = base_params or InterpParams()
         if region_labels is None:
             region_labels = np.zeros(len(stn_lon), int)
+        candidates = tuple(candidates)
+        inputs = _daily_inputs(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm,
+                               stn_vario, stn_valid, stn_anoms, month_idx, base.k_neighbors,
+                               len(candidates))
         mae_by_k, stn_mae_by_k = {}, {}
         for ka in candidates:
             # the gains use a prefix of the normals neighbourhood: ka <= k
             p = dataclasses.replace(base, k_neighbors_anom=min(int(ka), base.k_neighbors))
-            sc = xval_interp_daily(
-                stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
-                stn_valid, stn_anoms, month_idx, p, device,
-            )
+            sc = _loo_daily(inputs, p)
             mae_by_k[int(ka)] = sc["mae"]
             stn_mae_by_k[int(ka)] = sc["per_station_mae"]
 
