@@ -45,13 +45,13 @@ class _Engine(TileEngine):
     PIPELINE_DEPTH = 1  # a fetch pool of 5 buffers: fewer than a chunk's takes
 
 
-def _run(out, device, mesh=None, engine=_Engine):
+def _run(out, device, mesh=None, engine=_Engine, k_table=None):
     world, days, rasters, a, b = engine_inputs(64, 80, "2015-01-01", "2017-12-31", seed=3)
     cfg = TopoConfig(tile_rows=32, tile_cols=32,
                      interp=InterpParams(k_neighbors=16, max_tile_stations=64))
     mosaics = {v: out / f"mosaic_{v}.h5" for v in ("tmin", "tmax")}
     eng = engine(cfg, rasters, days, out / "tiles", device=device, mosaic_paths=mosaics,
-                 k_table={2: {"tmin": (12, 8), "tmax": (16, 12)}}, mesh=mesh)
+                 k_table=k_table or {2: {"tmin": (12, 8), "tmax": (16, 12)}}, mesh=mesh)
     counts = eng.run_production_pair("tmin", "tmax", a, b, years_per_chunk=1, progress=False)
     assert counts == {"tmin": 12, "tmax": 12}
     store = {v: MemoryMosaic.STORE.pop(p) for v, p in mosaics.items()}
@@ -95,6 +95,31 @@ def test_engine_on_the_card_matches_the_cpu_run(dev, tmp_path):
     assert 1 <= rows[2 * (365 + 24)] <= 5 and 1 <= rows[2 * (366 + 24)] <= 4
     assert all(len(ring) <= 1 for ring in eng._staging._rings.values())
     assert len(eng._staging._rings) == 1 and eng._staging.nbytes > 0
+
+
+def test_per_variable_sizes_at_k64_on_the_card_match_the_cpu_run(dev, tmp_path):
+    """A tile at tmin (48, 16) / tmax (16, 32), a tile of the benchmark's
+    ``grid.optim-k``: selection at 48, so the card runs the K = 64
+    instantiation of ``krig_normals`` with k_normal 48 and 16 in one pair,
+    two launches a step (three chunks: 3 x (3 + 2)), packed with G = 2;
+    against the plain path on the CPU, at the tolerances above."""
+    from topotpu_torch.kernels.krig_normals import krig_normals_indexed
+
+    table = {1: {"tmin": (48, 16), "tmax": (16, 32)}}
+    before = krig_normals_indexed.launches
+    _, card, man_card = _run(tmp_path / "card", dev, k_table=table)
+    assert krig_normals_indexed.launches - before == 15
+    _, cpu, man_cpu = _run(tmp_path / "cpu", torch.device("cpu"), k_table=table)
+    assert man_card == man_cpu
+    assert man_card["chunk_2016_2016"]["tmin_00001"]["k"] == [48, 16]
+    assert man_card["chunk_2016_2016"]["tmax_00001"]["k"] == [16, 32]
+    for var in ("tmin", "tmax"):
+        g, w = card[var], cpu[var]
+        assert g["attrs"] == w["attrs"] and g["attrs"]["complete"]
+        dec = lambda q: np.where(q == -32768, np.nan, q * STEP)  # noqa: E731
+        _within(dec(g["daily"]), dec(w["daily"]), STEP, 1e-2)
+        _within(g["normal"], w["normal"], STEP, 1e-2)
+        _within(g["se"], w["se"], SE_STEP, 2e-3)
 
 
 def test_two_shard_mesh_on_the_card_equals_one_device(dev, tmp_path):

@@ -232,6 +232,33 @@ def test_k_table_per_variable_k_matches_jax(runs):
     np.testing.assert_array_equal(d_k[:, 24:], d_d[:, 24:])
 
 
+def test_nnghs_table_of_block_regions_gives_each_tile_its_block():
+    """``cli/steps.py::_nnghs_table_core`` on a raster of 16 regions, each a
+    block of 2 x 2 tiles numbered row-major (the layout of the benchmark's
+    ``grid.optim-k``): every tile takes its block's (k, ka) of each
+    variable, the region ids mapped to their places in ``ids``."""
+    from topotpu_torch.cli.steps import _nnghs_table_core
+    from topotpu_torch.core.grid import GridSpec
+
+    n = 256  # 8 x 8 tiles of 32 x 32
+    grid = GridSpec(lon0=-106.0, lat0=41.0, cellsize=1 / 120, nrows=n, ncols=n)
+    flat = np.zeros((n, n), np.float32)
+    rasters = RasterStack(grid, flat, flat, np.zeros((12, n, n), np.float32),
+                          np.ones((n, n), bool))
+    cfg = TopoConfig(tile_rows=32, tile_cols=32)
+    r, c = np.ogrid[:n, :n]
+    reg = ((r // 64) * 4 + c // 64 + 100).astype(np.int32)
+    kn, ka = np.array([16, 24, 32, 48] * 4), np.repeat([8, 16, 24, 32], 4)
+    ks = {"tmin": (kn, ka), "tmax": (np.roll(kn, -5), np.roll(ka, -5))}
+    table = _nnghs_table_core(reg, np.arange(16) + 100, ks, rasters, cfg)
+    assert sorted(table) == list(range(64))
+    for tid, ent in table.items():
+        ti, tj = divmod(tid, 8)
+        b = (ti // 2) * 4 + tj // 2
+        nb = (b + 5) % 16
+        assert ent == {"tmin": (kn[b], ka[b]), "tmax": (kn[nb], ka[nb])}, tid
+
+
 @pytest.mark.parametrize("direct", [True, False])
 def test_two_shard_mesh_equals_one_device(runs, world, tmp_path, direct):
     """The engine over a mesh that lists the CPU twice (each tile's cells in

@@ -169,6 +169,48 @@ def test_pair_flat_with_per_variable_k_matches_jax(case, shared_validity):
     assert np.mean(uniform[:NDAYS] != buf[:NDAYS]) > 0.5
 
 
+def test_pair_at_per_variable_sizes_matches_each_variable_alone(case):
+    """A tile-pair at tmin (k, ka) = (48, 16) and tmax (16, 32), as a tile
+    of the benchmark's ``grid.optim-k`` runs: neighbours selected once at
+    48, each variable's systems and gain rows on its own prefixes, against
+    each variable run alone at its own sizes (tmax selected at 32). The
+    same stations in the same order, so only the rounding of the padded
+    slots' zeros parts them: within 1e-4 C, se within 1e-5 C. The step
+    records one ``step.krig`` span a launch, keyed (slots read, k_normal,
+    k_anom, systems): two here, one on a one-size tile."""
+    from topotpu_torch.core.config import InterpParams as TInterp
+    from topotpu_torch.utils.profiling import recording
+
+    pair, _ = case
+    tpair = pair_inputs_from_numpy(pair, "cpu")
+    params = TInterp(k_neighbors=48, k_neighbors_anom=32, k_per_var=(48, 16),
+                     ka_per_var=(16, 32))
+    with recording() as recs:
+        got = tpoint.interp_tile_pair(tpair, params, True)
+    assert [r.key for r in recs if r.name == "step.krig"] == [(48, 48, 16, 12),
+                                                              (48, 16, 32, 12)]
+    geom = tpair.geom
+    alone = [
+        tpoint.interp_tile(geom, TInterp(k_neighbors=48, k_neighbors_anom=16), True),
+        tpoint.interp_tile(
+            geom._replace(stn_norm=tpair.b.norm, stn_vario=tpair.b.vario,
+                          stn_anoms=tpair.b.anoms),
+            TInterp(k_neighbors=32, k_per_var=(16,), ka_per_var=(32,)), True),
+    ]
+    for g, w in zip(got, alone):
+        np.testing.assert_array_equal(g.ok.numpy(), w.ok.numpy())
+        np.testing.assert_allclose(g.normal.numpy(), w.normal.numpy(), atol=1e-4)
+        np.testing.assert_allclose(g.se.numpy(), w.se.numpy(), atol=1e-5)
+        np.testing.assert_allclose(g.daily.numpy(), w.daily.numpy(), atol=1e-4)
+    # the sizes reach the result: tmax at k = 16 is not tmax at k = 48
+    assert np.abs(got[1].normal.numpy() - tpoint.interp_tile_pair(
+        tpair, TInterp(k_neighbors=48, k_neighbors_anom=32), True)[1].normal.numpy()).max() > 0.05
+
+    with recording() as recs:
+        tpoint.interp_tile_pair(tpair, TInterp(k_neighbors=16), True)
+    assert [r.key for r in recs if r.name == "step.krig"] == [(16, 16, 16, 24)]
+
+
 def test_zero_month_validity_flags_that_month(case):
     """No valid station in one month: that month is not ok (sentinels in
     its normals and days); the other months stay finite."""

@@ -262,8 +262,12 @@ def _krig_tile_multi(
     heads, gains = [None] * V, [None] * V
     for (kn, ka), vs in groups.items():
         pairs = [(m, v) for v in vs for m in range(12)]
-        head, g = krig_normals_indexed(idx, dist, mask, table, cell_tab, pairs,
-                                       shared_validity, k_normal=kn, k_anom=ka, **solve_kw)
+        # keyed by the launch's shape: the slots read, the systems' and the
+        # gain rows' prefixes, and the systems solved
+        with span("step.krig", (idx.shape[-1], kn, ka, len(pairs))):
+            head, g = krig_normals_indexed(idx, dist, mask, table, cell_tab, pairs,
+                                           shared_validity, k_normal=kn, k_anom=ka,
+                                           **solve_kw)
         for j, v in enumerate(vs):
             heads[v], gains[v] = head[12 * j:12 * (j + 1)], g
     head = head.view(V, 12, *head.shape[1:]) if len(groups) == 1 else torch.stack(heads)

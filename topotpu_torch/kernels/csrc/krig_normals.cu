@@ -47,7 +47,9 @@
 //     26.4 KB above (limit raised with cudaFuncSetAttribute), so the
 //     register file, not shared memory, sets the resident warps.
 //
-// Exact fp32 throughout: no tensor cores, no TF32, no fast-math intrinsics.
+// Exact fp32 throughout, but for the p x p normal equations of the trend and
+// the gain rows, accumulated and solved in fp64 (solve_spd_small): no tensor
+// cores, no TF32, no fast-math intrinsics.
 // The solve core (pair distances, assembly, factorisation with its two
 // solves, masked OK sums) is krig_core.cuh, which ok_solve.cu uses too.
 //
@@ -139,28 +141,37 @@ __device__ __forceinline__ constexpr int tri(int i, int j) {
   return i * (i + 1) / 2 + j;
 }
 
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // In-place Cholesky solve of a p x p SPD system held in registers (lower
 // triangle of A, packed by rows); b is overwritten with x. Every lane solves
-// the same system.
+// the same system. In float64, as the normal equations are formed: they
+// square the condition number of the point-centred design, up to ~1e6 where
+// a cell lies outside its stations' covariates, and in float32 that put a
+// k = 16 trend 0.033 C from float64 on an H100.
 template <int MAXP>
 __device__ __forceinline__ void solve_spd_small(
-    float (&A)[MAXP * (MAXP + 1) / 2], float (&b)[MAXP], int p) {
+    double (&A)[MAXP * (MAXP + 1) / 2], double (&b)[MAXP], int p) {
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
     if (i < p) {
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
-        float s = A[tri(i, j)];
+        double s = A[tri(i, j)];
 #pragma unroll
         for (int t = 0; t < j; ++t) s -= A[tri(i, t)] * A[tri(j, t)];
-        A[tri(i, j)] = (i == j) ? sqrtf(fmaxf(s, 1e-20f)) : s / A[tri(j, j)];
+        A[tri(i, j)] = (i == j) ? sqrt(fmax(s, 1e-20)) : s / A[tri(j, j)];
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
     if (i < p) {
-      float s = b[i];
+      double s = b[i];
 #pragma unroll
       for (int t = 0; t < i; ++t) s -= A[tri(i, t)] * b[t];
       b[i] = s / A[tri(i, i)];
@@ -169,7 +180,7 @@ __device__ __forceinline__ void solve_spd_small(
 #pragma unroll
   for (int i = MAXP - 1; i >= 0; --i) {
     if (i < p) {
-      float s = b[i];
+      double s = b[i];
 #pragma unroll
       for (int t = i + 1; t < MAXP; ++t)
         if (t < p) s -= A[tri(t, i)] * b[t];
@@ -203,28 +214,29 @@ __device__ __forceinline__ void design_col(Cov cov, float cv, int k, int lane,
   for (int r = 0; r < R; ++r) x[r] = dc[r] / scale;
 }
 
-// A = X^T W X + (ridge * mean diag + 1e-30) I, on every lane.
+// A = X^T W X + (ridge * mean diag + 1e-30) I, on every lane, accumulated
+// in float64 from the float32 design (see solve_spd_small).
 template <int R, int MAXP>
 __device__ __forceinline__ void normal_eq(const float (&X)[MAXP][R],
                                           const float (&w)[R], int p,
                                           float ridge,
-                                          float (&A)[MAXP * (MAXP + 1) / 2]) {
-  float diag = 0.0f;
+                                          double (&A)[MAXP * (MAXP + 1) / 2]) {
+  double diag = 0.0;
 #pragma unroll
   for (int i = 0; i < MAXP; ++i) {
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
       if (i < p) {
-        float a = 0.0f;
+        double a = 0.0;
 #pragma unroll
-        for (int r = 0; r < R; ++r) a += w[r] * X[i][r] * X[j][r];
-        a = warp_sum(a);
+        for (int r = 0; r < R; ++r) a += (double)w[r] * X[i][r] * X[j][r];
+        a = warp_sum_f64(a);
         A[tri(i, j)] = a;
         if (i == j) diag += a;
       }
     }
   }
-  const float reg = ridge * (diag / p) + 1e-30f;
+  const double reg = (double)ridge * (diag / p) + 1e-30;
 #pragma unroll
   for (int i = 0; i < MAXP; ++i)
     if (i < p) A[tri(i, i)] += reg;
@@ -330,7 +342,7 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
       if (i > qf && i <= q)
         design_col<R>([&](int r) { return src.cov(sy, i - 1, r); },
                       src.cell_cov(sy, i - 1), k, lane, w, wsum, X[i]);
-    float A[MAXP * (MAXP + 1) / 2], b[MAXP];
+    double A[MAXP * (MAXP + 1) / 2], b[MAXP];
     normal_eq<R, MAXP>(X, w, p, ridge, A);
     float nrm[R];
 #pragma unroll
@@ -338,23 +350,26 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
       nrm[r] = lane + 32 * r < k ? src.norm(sy, r) : 0.0f;
 #pragma unroll
     for (int i = 0; i < MAXP; ++i) {
-      b[i] = 0.0f;
+      b[i] = 0.0;
       if (i < p) {
-        float bi = 0.0f;
+        double bi = 0.0;
 #pragma unroll
-        for (int r = 0; r < R; ++r) bi += w[r] * X[i][r] * nrm[r];
-        b[i] = warp_sum(bi);
+        for (int r = 0; r < R; ++r) bi += (double)w[r] * X[i][r] * nrm[r];
+        b[i] = warp_sum_f64(bi);
       }
     }
     solve_spd_small<MAXP>(A, b, p);
-    const float trend = b[0];  // x0 = e0 after centring
+    float beta[MAXP];
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) beta[i] = (float)b[i];
+    const float trend = beta[0];  // x0 = e0 after centring
     float resid[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float ta = b[0] * X[0][r];
+      float ta = beta[0] * X[0][r];
 #pragma unroll
       for (int i = 1; i < MAXP; ++i)
-        if (i < p) ta += b[i] * X[i][r];
+        if (i < p) ta += beta[i] * X[i][r];
       resid[r] = (nrm[r] - ta) * m[r];
     }
 
@@ -428,18 +443,21 @@ __device__ __forceinline__ void krig_cell(const Src& src, float* ws, int lane,
     if (i <= qa)
       design_col<R>([&](int r) { return src.acov(i - 1, r); },
                     src.cell_acov(i - 1), k, lane, w, wsum, X[i]);
-  float A[MAXP * (MAXP + 1) / 2], b[MAXP];
+  double A[MAXP * (MAXP + 1) / 2], b[MAXP];
   normal_eq<R, MAXP>(X, w, pa, ridge, A);
 #pragma unroll
-  for (int i = 0; i < MAXP; ++i) b[i] = i == 0 ? 1.0f : 0.0f;
+  for (int i = 0; i < MAXP; ++i) b[i] = i == 0 ? 1.0 : 0.0;
   solve_spd_small<MAXP>(A, b, pa);
+  float beta[MAXP];
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i) beta[i] = (float)b[i];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (lane + 32 * r < k) {
-      float gx = b[0] * X[0][r];
+      float gx = beta[0] * X[0][r];
 #pragma unroll
       for (int i = 1; i < MAXP; ++i)
-        if (i < pa) gx += b[i] * X[i][r];
+        if (i < pa) gx += beta[i] * X[i][r];
       src.put_gain(r, lane + 32 * r < ka ? w[r] * gx : 0.0f);
     }
   }

@@ -30,7 +30,9 @@ The plain versions, ``krig_normals_indexed_ref`` and
 ``krig_normals_gathered_ref``, compose the port's plain modules (distance
 weights, centred design, WLS, variogram interpolation, pair distances,
 covariance assembly, OK solve, GWR gain). Any C and any 1 <= k <= 64 are
-taken; no padding.
+taken; no padding. They compute in the tables' dtype throughout, where the
+kernel forms and solves the small normal equations of the trend and of the
+gain rows in float64 (``csrc/krig_normals.cu::solve_spd_small``).
 """
 
 from __future__ import annotations
