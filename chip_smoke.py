@@ -15,7 +15,7 @@ Phases, in order; each prints one line, and any failure exits non-zero:
 
 1. environment: torch version, the device, and ``nvidia-smi``'s name and
    power limit (a line of its own). No CUDA device: exit non-zero.
-2. build: the four kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
+2. build: the five kernel libraries from ``topotpu_torch/kernels/csrc/*.cu``
    with nvcc, all started at once. While they compile, the main thread
    builds phase 9's world on the host (numpy, 15-22 s on the card's host),
    and ``python -m topotpu_torch.cli --help`` (phase 12) runs in a process
@@ -71,7 +71,13 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    every fit's parameters and SSE within 1e-5 of their scale, and after 50
    at most 1 % of the fits' curves more than 1e-3 of the sill apart (a step accepted or
    rejected on near-equal SSEs parts a few fits, as float64 does), its
-   time, the plain loop's and its bound.
+   time, the plain loop's and its bound. Then the leave-one-out selection
+   (``kernels/loo_select.py``) at the station stage's network size, 10,000
+   stations with a fifth invalid at random each month, 12 months at k = 48
+   and one at k = 64, one launch a call, against its plain version (the
+   score matrix, masked fills and ``topk`` a month): kept stations valid and
+   never the query, scores within 2 ulps, the same sets where the k-th is
+   not a near-tie; its time, its bound and the plain version's time.
 4. the paired tile step (``interp_tile_pair_flat``) at the benchmark's size:
    65,536 cells, 512 stations, k = 32, 365 days, both variables, the
    run-global pack lattice and the reconcile. The run must launch
@@ -115,8 +121,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    resume of three tiles recomputes exactly them, bit for bit.
 9. the station-side stages at the reference's full network size: 10,000
    stations on a 1024 x 1024 grid over one 4-year chunk (1,461 days).
-   krig-params (k_fit = 64; it must launch ``variogram_fit`` 12 times,
-   once a month) and the failed-fit fill, with the usable-fit
+   krig-params (k_fit = 64; it must launch ``variogram_fit`` and
+   ``loo_select`` 12 times each, once a month) and the failed-fit fill, with the usable-fit
    share, the July empirical variograms of 256 sampled stations (recomputed
    from the same month's residuals) held against the float64 loop oracle,
    and the timed run's fits of them against scipy's; then the indexed
@@ -129,7 +135,8 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    the float64 pipeline oracle run with the station left out), the nnghs
    sweep over (8, 16, 24, 32, 48) with two regions, the daily x-val and the
    anomaly sweep over (8, 16, 24, 32). The indexed ``krig_normals`` launch
-   counter must rise by one per x-val run. Each stage's wall time and the peak device
+   counter must rise by one per x-val run, and ``loo_select``'s by one per
+   x-val run (one per anomaly sweep, whose runs share their selection). Each stage's wall time and the peak device
    memory are printed, and profiler breakdowns of krig-params (its fits
    one ``variogram_fit`` launch a month) and of the daily x-val.
 10. the stages before the infill, as the CLI's qa, homog and make-regions
@@ -194,8 +201,9 @@ Phases, in order; each prints one line, and any failure exits non-zero:
    candidate, interp one a tile-pair and two where the variables' sizes
    differ plus one ``scatter_daily_packed`` a tile-pair and no float entry,
    point and validate-f64 one ``krig_normals`` and one ``scatter_daily`` a
-   variable, the rest none; krig-params 24 ``variogram_fit``, one a month
-   and variable), the point stage's normals, se and dailies agree
+   variable, the rest none; krig-params 24 ``variogram_fit`` and 24
+   ``loo_select``, one a month and variable; optim-nnghs one ``loo_select``
+   a normals candidate and one an anomaly sweep, a variable), the point stage's normals, se and dailies agree
    with the same stage on CPU tensors (the plain versions; ``[kernels]``'
    parity tolerance on 99.9 % of values, 1e-2 C cap), validate-f64 is
    within the 0.05 C bar, no decoded cell has tmax < tmin, validate is ok for both
@@ -314,8 +322,10 @@ MESH_REPS = 5           # step walls of each form, in turns, after a warm-up
 MH_PROCESSES = 2
 MH_TIMEOUT_S = 600      # the workers wait from the build to the end of [cli]
 # csrc/<name>.cu; kernel names hold them
-KERNELS = ("krig_normals", "scatter_daily", "ok_solve", "variogram_fit")
+KERNELS = ("krig_normals", "scatter_daily", "ok_solve", "variogram_fit", "loo_select")
 VF_FITS, VF_BINS, VF_ITERS = 10_000, 15, 50  # the station stage's fits of one month
+LS_STATIONS = 10_000  # the station stage's network, for the leave-one-out selection
+LS_CASES = ((12, 48), (1, 64))  # (months, k): an x-val run at the sweep's largest k; a fit month
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 
@@ -472,6 +482,68 @@ def variogram_line(dev):
         f"of {ok.sum()} fits over 1e-3) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({t_cmp:.1f} s to compare)")
     return dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms, library_ms=None, **bnd)
+
+
+def loo_lines(dev):
+    """``[kernels] loo_select``: the leave-one-out selection kernel against its
+    plain version (``loo_select_ref``: a month at a time, the score matrix,
+    the masked fills and ``topk``) at the station phase's size, LS_STATIONS
+    stations over CONUS's extent with a fifth invalid at random each month,
+    at LS_CASES: one launch a call; every kept station valid in its month and
+    never the query; the scores slot by slot within 2 ulps of the plain
+    version's; the same station sets wherever the plain version's k-th and
+    (k+1)-th scores lie more than 2 ulps apart. Beside the kernel's time (the
+    Morton codes and their sort included), its bound (the outputs' bytes, or
+    5 float32 operations a pair and month) and the plain version's time.
+    Returns the first case's report."""
+    import torch
+
+    from topotpu_torch.geo.distance import unit_xyz
+    from topotpu_torch.kernels.loo_select import loo_select, loo_select_ref
+
+    S = LS_STATIONS
+    rng = np.random.default_rng(9)
+    lon, lat = (torch.tensor(rng.uniform(*r, S), dtype=torch.float32, device=dev)
+                for r in ((-125.0, -67.0), (25.0, 49.0)))
+    xyz = unit_xyz(lon, lat)
+    report = None
+    for M, k in LS_CASES:
+        valid = torch.from_numpy(rng.uniform(size=(S, M)) > 0.2).to(dev)
+        loo_select.launches = 0
+        score, idx = loo_select(xyz, valid, k)
+        torch.cuda.synchronize()
+        if loo_select.launches != 1:
+            raise AssertionError(f"loo_select: {loo_select.launches} launches for one call")
+        ws, wi = (t.cpu().numpy() for t in loo_select_ref(xyz, valid, k + 1))
+        gs, gi, v = score.cpu().numpy(), idx.cpu().numpy(), valid.cpu().numpy()
+        mask = np.isfinite(gs)
+        if not np.array_equal(mask, np.isfinite(ws[..., :k])):
+            raise AssertionError("loo_select: masked slots differ from the plain version's")
+        if (np.any(mask & (gi == np.arange(S)[None, :, None]))
+                or not np.all(v.T[np.arange(M)[:, None, None], gi][mask])):
+            raise AssertionError("loo_select: a station its own neighbour, or one not valid")
+        ulp = np.spacing(np.maximum(np.abs(gs[mask]), np.abs(ws[..., :k][mask])))
+        gap = np.abs(gs[mask] - ws[..., :k][mask])
+        if not np.all(gap <= 2 * ulp):
+            raise AssertionError(f"loo_select: scores {np.max(gap / ulp):.1f} ulps apart")
+        kth, nxt = ws[..., k - 1], ws[..., k]
+        with np.errstate(invalid="ignore"):
+            clear = ~np.isfinite(nxt) | (kth - nxt > 2 * np.spacing(np.abs(kth)))
+        differ = np.any(np.sort(np.where(mask, gi, -1), -1)
+                        != np.sort(np.where(mask, wi[..., :k], -1), -1), -1)
+        if np.any(differ & clear):
+            raise AssertionError(f"loo_select: {int(np.sum(differ & clear))} sets differ")
+        ms = cuda_ms(lambda: loo_select(xyz, valid, k), 10)
+        plain_ms = cuda_ms(lambda: loo_select_ref(xyz, valid, k), 2, warmup=1)
+        bnd = bound(M * S * k * 12 + S * (12 + M), M * S * S * 5)
+        log(f"[kernels] loo_select S={S} months={M} k={k}, 1 launch: scores within "
+            f"{np.max(gap / ulp):.1f} ulps of the plain version's; the k-th clear of the "
+            f"next in {clear.mean():.4f} of the rows, the same sets there ({np.sum(differ)} "
+            f"rows differ, all at near-ties) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+        report = report or dict(max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
+                                library_ms=None, **bnd)
+    return report
 
 
 def krig_flops(k, n_systems, n_nbr=1, q=3, qa=3, q_fixed=2):
@@ -740,6 +812,7 @@ def phase_kernels(world, days, rows64, dev):
     del ti
     report.update(scatter_lines(rows64, dev))
     report["variogram_fit"] = variogram_line(dev)
+    report["loo_select"] = loo_lines(dev)
     return report
 
 
@@ -1924,6 +1997,7 @@ def phase_stations(dev, prebuilt):
         xval_interp_normals,
     )
     from topotpu_torch.kernels.krig_normals import krig_normals_indexed
+    from topotpu_torch.kernels.loo_select import loo_select
     from topotpu_torch.kernels.variogram_fit import variogram_fit
 
     world, st, ndays, build_s = prebuilt
@@ -1944,12 +2018,13 @@ def phase_stations(dev, prebuilt):
 
     vp = VariogramParams(k_fit_neighbors=64, n_bins=15, gn_iters=50)
     ip = InterpParams()
-    variogram_fit.launches = 0
+    variogram_fit.launches = loo_select.launches = 0
     res = timed("krig-params", lambda: krig_params_to_numpy(build_krig_params(
         st.lon, st.lat, st.elev, st.tdi, st.lst, st.norm, st.valid, vp, ip, dev)))
-    fits = variogram_fit.launches
-    if fits != 12:  # one launch fits a month's stations
-        raise RuntimeError(f"krig-params: {fits} variogram_fit launches, expected 12")
+    fits, loo = variogram_fit.launches, {"krig-params": loo_select.launches}
+    if fits != 12 or loo["krig-params"] != 12:  # one launch fits, one selects, a month
+        raise RuntimeError(f"krig-params: {fits} variogram_fit and {loo['krig-params']} "
+                           f"loo_select launches, expected 12 each")
     usable = float(res.ok.mean())
     if usable <= 0.95:
         raise RuntimeError(f"only {usable:.4f} of the fits are usable")
@@ -1990,13 +2065,16 @@ def phase_stations(dev, prebuilt):
 
     counts = {}
 
-    def counted(name, runs, fn):
-        krig_normals_indexed.launches = 0
+    def counted(name, runs, fn, selections=None):
+        """``fn`` timed, with one ``krig_normals`` launch a run and one
+        ``loo_select`` a run (``selections`` where the runs share them)."""
+        krig_normals_indexed.launches = loo_select.launches = 0
         out = timed(name, fn)
-        counts[name] = krig_normals_indexed.launches
-        if counts[name] != runs:  # one launch covers an x-val run's 12 months
-            raise RuntimeError(f"{name}: {counts[name]} krig_normals launches, "
-                               f"expected {runs}")
+        counts[name], loo[name] = krig_normals_indexed.launches, loo_select.launches
+        want = runs if selections is None else selections
+        if counts[name] != runs or loo[name] != want:  # one launch covers a run's 12 months
+            raise RuntimeError(f"{name}: {counts[name]} krig_normals and {loo[name]} "
+                               f"loo_select launches, expected {runs} and {want}")
         return out
 
     p32 = InterpParams(k_neighbors=K)
@@ -2031,7 +2109,7 @@ def phase_stations(dev, prebuilt):
     acands = (8, 16, 24, 32)
     na = counted("optim-nnghs-anoms", len(acands), lambda: optimize_nnghs_anoms(
         *st.krig(), st.anoms, st.month_idx, candidates=acands, region_labels=regions,
-        device=dev))
+        device=dev), selections=1)  # the sweep's runs share its one selection
     if set(na["best"]) != {0, 1} or not all(v < 2.0 for v in na["mae"].values()):
         raise RuntimeError(f"optimize_nnghs_anoms: best {na['best']} MAE {na['mae']}")
     log(f"[stations] xval-daily k={K} ka={min(p32.k_neighbors_anom, K)} over {ndays} days: "
@@ -2039,7 +2117,7 @@ def phase_stations(dev, prebuilt):
         f"optim-nnghs-anoms over {acands}: best {na['best']}; MAE by ka "
         + " ".join(f"{k}:{v:.4f}" for k, v in na["mae"].items()))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[stations] krig_normals launches {counts}; walls "
+    log(f"[stations] krig_normals launches {counts}; loo_select launches {loo}; walls "
         + " ".join(f"{n} {w:.3f} s" for n, w in walls.items())
         + f"; peak device memory {peak:.3f} GiB")
     profile_breakdown("stations", "krig-params",
@@ -2047,7 +2125,7 @@ def phase_stations(dev, prebuilt):
                                                 st.norm, st.valid, vp, ip, dev))
     profile_breakdown("stations", "xval-daily", lambda: xval_interp_daily(
         *st.krig(), st.anoms, st.month_idx, p32, dev))
-    return sum(counts.values()), fits, world
+    return sum(counts.values()), fits, sum(loo.values()), world
 
 
 def _observed_day(arrays, s, t0, half=0):
@@ -2501,6 +2579,7 @@ def phase_cli(dev, helped):
     from topotpu_torch.geo.regions import make_climate_regions
     from topotpu_torch.interp.point import krig_launches
     from topotpu_torch.io.rasters import RasterStack
+    from topotpu_torch.kernels.loo_select import loo_select
     from topotpu_torch.kernels.variogram_fit import variogram_fit
 
     t_phase = time.perf_counter()
@@ -2581,11 +2660,12 @@ def phase_cli(dev, helped):
                 for i, name in enumerate((C.VARIO_NUG, C.VARIO_PSILL, C.VARIO_RNG)):
                     st["stn"][v][name] = vario[..., i]
             return out
-        variogram_fit.launches = 0
+        variogram_fit.launches = loo_select.launches = 0
         stage("krig-params", krig_params)
-        total["variogram_fit"] = variogram_fit.launches
-        if total["variogram_fit"] != 12 * len(VARS):  # one launch a month and variable
-            raise RuntimeError(f"krig-params: {total['variogram_fit']} variogram_fit launches")
+        total["variogram_fit"], total["loo_select"] = variogram_fit.launches, loo_select.launches
+        if total["variogram_fit"] != 12 * len(VARS) or loo_select.launches != 12 * len(VARS):
+            raise RuntimeError(f"krig-params: {total['variogram_fit']} variogram_fit and "  # one
+                               f"{loo_select.launches} loo_select launches")  # a month, variable
 
         def optim_nnghs():
             reg = make_climate_regions(rasters)  # step_make_regions' defaults
@@ -2596,7 +2676,12 @@ def phase_cli(dev, helped):
             ks = {v: steps._nnghs_k_arrays(out[v], ids, cfg) for v in VARS}
             st["ktab"] = steps._nnghs_table_core(reg.astype(np.int32), ids, ks, rasters, cfg)
             return out
+        loo_select.launches = 0
         stage("optim-nnghs", optim_nnghs)
+        total["loo_select"] += loo_select.launches
+        if loo_select.launches != (len(CLI_CANDIDATES) + 1) * len(VARS):
+            raise RuntimeError(f"optim-nnghs: {loo_select.launches} loo_select launches, one a "
+                               f"normals candidate and one an anomaly sweep a variable")
         ktab = st["ktab"]
         sets = {v: steps._station_set_core(st["stn"][v], st["filled"][v], days) for v in VARS}
 
@@ -3241,7 +3326,8 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
     for kernel, n in phase_engine(dev).items():
         launches[kernel] += n
     lap("engine")
-    st_launches, launches["variogram_fit"], st_world = phase_stations(dev, st_prebuilt)
+    st_launches, launches["variogram_fit"], launches["loo_select"], st_world = phase_stations(
+        dev, st_prebuilt)
     del st_prebuilt
     launches["krig_normals"] += st_launches
     lap("stations")
@@ -3282,6 +3368,8 @@ def run_phases(mode, dev, name, helped, workers, t_start, lap):
                             "topotpu/kernels/pallas_krig.py:608"),
         variogram_fit=("topotpu_torch/kernels/csrc/variogram_fit.cu",
                        None),  # replaces no TPU kernel: XLA runs the JAX package's loop
+        loo_select=("topotpu_torch/kernels/csrc/loo_select.cu",
+                    None),  # replaces no TPU kernel: XLA's top_k in topotpu/geo/neighbors.py
     )
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep, launches=launches[k],

@@ -24,6 +24,11 @@ float64 run of the plain version: a step accepted or rejected on near-equal
 SSEs sends a fit elsewhere along a flat valley of the SSE, so sums taken in
 another order part a few fits in a thousand from the plain version's, as
 float64 arithmetic parts them (see ``test_variogram_fit_kernel_matches_plain``).
+
+The leave-one-out selection: slot by slot the scores within 2 ulps of the
+plain version's sorted top k (the kernel's three fmas against cuBLAS's sums),
+the same masked slots, and the same station sets wherever the plain
+version's k-th and (k+1)-th scores lie more than 2 ulps apart.
 """
 
 import numpy as np
@@ -55,6 +60,8 @@ from topotpu_torch.kernels.scatter_daily import (
     scatter_daily_packed_ref,
     scatter_daily_ref,
 )
+from topotpu_torch.geo.distance import unit_xyz
+from topotpu_torch.kernels.loo_select import loo_select, loo_select_ref
 from topotpu_torch.kernels.variogram_fit import fit_exp_variogram_ref, variogram_fit
 from topotpu_torch.stats.variogram import EmpiricalVariogram
 from variogram_cases import fits_apart, synthetic_emp
@@ -693,3 +700,75 @@ def test_build_krig_params_launches_the_fit_kernel_a_month(dev, monkeypatch):
     np.testing.assert_allclose(np.median((gv[..., 0] + gv[..., 1])[ok]), np.median(sill[ok]),
                                rtol=1e-2)
     np.testing.assert_allclose(np.median(gv[..., 2][ok]), np.median(wv[..., 2][ok]), rtol=1e-2)
+
+
+def _loo_case(dev, S, M, seed=6, by_lon=False):
+    """S stations over CONUS's extent (the last a twin of station 0), as unit
+    vectors on ``dev``, and their (S, M) validity: a fifth invalid at random
+    each month, month 1 (of M > 1) with none valid; ``by_lon`` puts the pool
+    in the order of longitude."""
+    rng = np.random.default_rng(seed)
+    lon, lat = rng.uniform(-125.0, -67.0, S), rng.uniform(25.0, 49.0, S)
+    lon[-1], lat[-1] = lon[0], lat[0]
+    if by_lon:
+        order = np.argsort(lon, kind="stable")
+        lon, lat = lon[order], lat[order]
+    valid = rng.uniform(size=(S, M)) > 0.2
+    if M > 1:
+        valid[:, 1] = False
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return unit_xyz(T(lon.astype(np.float32)), T(lat.astype(np.float32))), T(valid)
+
+
+def _ulps(a):
+    return np.spacing(np.abs(a).astype(np.float32))
+
+
+@pytest.mark.parametrize("k, M, by_lon", [(k, M, False) for k in (8, 32, 48, 64, 100)
+                                           for M in (1, 12)] + [(48, 12, True)])
+def test_loo_select_kernel_matches_plain(dev, k, M, by_lon):
+    S = 10_000
+    xyz, valid = _loo_case(dev, S, M, by_lon=by_lon)
+    loo_select.launches = 0
+    score, idx = loo_select(xyz, valid, k)
+    torch.cuda.synchronize()
+    assert loo_select.launches == 1
+    assert score.shape == idx.shape == (M, S, k) and idx.dtype == torch.int64
+    ws, wi = (t.cpu().numpy() for t in loo_select_ref(xyz, valid, k + 1))
+    gs, gi = score.cpu().numpy(), idx.cpu().numpy()
+    v = valid.cpu().numpy()
+    mask = np.isfinite(gs)
+    np.testing.assert_array_equal(mask, np.isfinite(ws[..., :k]))
+    assert np.all((gi >= 0) & (gi < S))
+    assert not np.any(mask & (gi == np.arange(S)[None, :, None]))
+    assert np.all(v.T[np.arange(M)[:, None, None], gi][mask])
+    if M > 1:
+        assert not mask[1].any()
+    w = ws[..., :k]
+    gap = np.abs(gs[mask] - w[mask])
+    assert np.all(gap <= 2 * _ulps(np.maximum(np.abs(gs[mask]), np.abs(w[mask])))), gap.max()
+    kth, nxt = ws[..., k - 1], ws[..., k]
+    with np.errstate(invalid="ignore"):  # -inf - -inf in the rows past the valid count
+        clear = ~np.isfinite(nxt) | (kth - nxt > 2 * _ulps(kth))  # (M, S)
+    g_sets = np.sort(np.where(mask, gi, -1), -1)[clear]
+    w_sets = np.sort(np.where(mask, wi[..., :k], -1), -1)[clear]
+    np.testing.assert_array_equal(g_sets, w_sets)
+    assert clear.mean() > 0.9
+
+
+def test_loo_select_refuses_bad_inputs(dev):
+    xyz, valid = _loo_case(dev, 100, 3)
+    loo_select.launches = 0
+    with pytest.raises(ValueError, match="k = 129"):
+        loo_select(xyz, valid, 129)
+    with pytest.raises(ValueError, match="devices"):
+        loo_select(xyz, valid.cpu(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        loo_select(xyz.T.contiguous().T, valid, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        loo_select(xyz, valid.T.contiguous().T, 8)
+    with pytest.raises(TypeError):
+        loo_select(xyz.double(), valid, 8)
+    with pytest.raises(TypeError):
+        loo_select(xyz, valid.to(torch.uint8), 8)
+    assert loo_select.launches == 0

@@ -14,6 +14,7 @@ from topotpu.geo import neighbors as jnbr
 from topotpu.oracle.numpy_ref import haversine_km
 from topotpu_torch.geo import distance as tdist
 from topotpu_torch.geo import neighbors as tnbr
+from topotpu_torch.kernels.loo_select import loo_select
 
 torch.set_num_threads(1)
 
@@ -113,6 +114,56 @@ def test_select_neighbors_matches_jax(branch):
         assert not np.any((got.idx.numpy() == np.arange(40)[:, None]) & got.mask.numpy())
     if branch == "pool_smaller_than_k":
         assert got.mask.numpy().sum(1).max() == 7  # station 4 invalid
+
+
+@pytest.mark.parametrize("M, k, case", [
+    (1, 16, "months_differ"), (12, 16, "months_differ"), (12, 1, "months_differ"),
+    (12, 64, "months_differ"), (1, 64, "months_differ"), (12, 8, "twin"),
+    (12, 24, "fewer_valid_than_k"), (1, 24, "fewer_valid_than_k"),
+])
+def test_select_loo_neighbors_matches_the_per_month_loop(M, k, case):
+    """On CPU tensors ``select_loo_neighbors`` gives, month by month, exactly
+    what the cosine branch of ``select_neighbors`` gives with the pool as the
+    cells and ``exclude_idx = arange(S)``: idx, dist and mask bit for bit.
+    Validity differs month to month (a fifth of the stations invalid at
+    random); a twin at station 0's coordinates enters its neighbourhood at
+    distance 0; a month with fewer valid stations than k masks the rest."""
+    rng = np.random.default_rng(M * 1000 + k)
+    lon, lat = _points(5, 90)
+    valid = rng.uniform(size=(90, M)) > 0.2
+    if case == "twin":
+        lon, lat = np.append(lon, lon[0]), np.append(lat, lat[0])
+        valid = np.concatenate([valid, np.ones((1, M), bool)])
+        valid[0] = True
+    if case == "fewer_valid_than_k":
+        valid &= rng.uniform(size=valid.shape) < 0.15
+    S = len(lon)
+    T = torch.from_numpy
+    got = tnbr.select_loo_neighbors(T(lon), T(lat), T(valid), k)
+    want = [tnbr.select_neighbors(T(lon), T(lat), T(lon), T(lat), T(valid[:, m]), k=k,
+                                  exclude_idx=torch.arange(S)) for m in range(M)]
+    for field in tnbr.Neighborhood._fields:
+        w = torch.stack([getattr(n, field) for n in want])
+        assert torch.equal(getattr(got, field), w), field
+    mask, idx = got.mask.numpy(), got.idx.numpy()
+    own = np.arange(S)[None, :, None]
+    assert not np.any((idx == own) & mask)
+    assert np.all(valid.T[np.arange(M)[:, None, None], idx][mask])
+    n_valid = valid.sum(0)[:, None] - valid.T  # (M, S): the others valid
+    np.testing.assert_array_equal(mask.sum(-1), np.minimum(n_valid, k))
+    if case == "twin":
+        assert idx[0, 0, 0] == S - 1 and idx[0, S - 1, 0] == 0
+        assert got.dist[0, 0, 0] == 0.0 and got.dist[0, S - 1, 0] == 0.0
+    if case == "fewer_valid_than_k":
+        assert n_valid.max() < k
+
+
+@pytest.mark.parametrize("k", [0, 129])
+def test_loo_select_refuses_k_outside_1_to_128(k):
+    lon, lat = _points(6, 20)
+    xyz = tdist.unit_xyz(torch.from_numpy(lon), torch.from_numpy(lat))
+    with pytest.raises(ValueError, match="k = "):
+        loo_select(xyz, torch.ones(20, 2, dtype=torch.bool), k)
 
 
 @pytest.mark.parametrize("kernel", ["bisquare", "gaussian", "uniform"])

@@ -376,7 +376,8 @@ def stations():
 
 def test_nnghs_anoms_records_one_loo_daily_a_candidate_with_fetch_and_score(stations):
     """The sweep's inputs are made once (one ``xval.daily_inputs``, keyed by
-    the candidates it serves, holding the 12 months' selections), then one
+    the candidates it serves, holding the 12 months' selection: one
+    ``geo.select_neighbors`` keyed by its 12 months), then one
     ``xval.loo_daily`` a candidate holds its scoring and its one fetch."""
     with prof.recording() as got:
         optimize_nnghs_anoms(*stations.krig(), stations.anoms, stations.month_idx,
@@ -385,8 +386,9 @@ def test_nnghs_anoms_records_one_loo_daily_a_candidate_with_fetch_and_score(stat
     (sweep,) = [r for r in got if r.name == "xval.sweep_anoms"]
     (inputs,) = _children(got, sweep, "xval.daily_inputs")
     assert inputs.key == 3
-    assert [c.name for c in _children(got, inputs)] == ["geo.select_neighbors"] * 12
-    assert sum(r.name == "geo.select_neighbors" for r in got) == 12
+    (sel,) = _children(got, inputs)
+    assert (sel.name, sel.key) == ("geo.select_neighbors", 12)
+    assert sum(r.name == "geo.select_neighbors" for r in got) == 1
     loo = _children(got, sweep, "xval.loo_daily")
     assert sorted(r.key for r in loo) == [8, 12, 16]
     assert all(inputs.t1 <= r.t0 for r in loo)
@@ -406,4 +408,4 @@ def test_krig_params_records_one_variogram_fit_a_month(stations):
     fits = _children(got, call, "variogram.fit")
     assert [r.key for r in fits] == list(range(12))
     for f in fits:
-        assert [c.name for c in _children(got, f)] == ["geo.select_neighbors"]
+        assert [(c.name, c.key) for c in _children(got, f)] == [("geo.select_neighbors", 1)]

@@ -368,9 +368,10 @@ def test_nnghs_anoms_sweep_equals_one_daily_xval_a_candidate(st, device):
 @pytest.mark.parametrize("route", ["sweep", "single"])
 def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
     """A three-candidate sweep groups the anomalies once and selects the 12
-    months' neighbourhoods once, as one ``xval_interp_daily`` call does;
-    each candidate still brings back one transfer of S + 15 values."""
-    calls = {"group_days_by_month": 0, "select_neighbors": 0}
+    months' neighbourhoods once, in one ``select_loo_neighbors`` call, as one
+    ``xval_interp_daily`` call does; each candidate still brings back one
+    transfer of S + 15 values."""
+    calls = {"group_days_by_month": 0, "select_loo_neighbors": 0}
     sizes = []
 
     def counting(name):
@@ -396,5 +397,5 @@ def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
                                    base_params=base, device="cpu")
     else:
         txval.xval_interp_daily(*st.krig(), st.anoms, st.month_idx, base, "cpu")
-    assert calls == {"group_days_by_month": 1, "select_neighbors": 12}
+    assert calls == {"group_days_by_month": 1, "select_loo_neighbors": 1}
     assert sizes == [len(st.lon) + 15] * (3 if route == "sweep" else 1)

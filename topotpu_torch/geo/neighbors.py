@@ -19,11 +19,13 @@ from topotpu_torch.geo.distance import (
     pairwise_great_circle_km,
     unit_xyz,
 )
+from topotpu_torch.kernels.loo_select import loo_select
 from topotpu_torch.utils.profiling import span
 
 
 class Neighborhood(NamedTuple):
-    """Per-cell padded neighbourhoods. All tensors (ncells, k)."""
+    """Per-cell padded neighbourhoods. All tensors (ncells, k), or (M,
+    ncells, k) for M months' neighbourhoods (``select_loo_neighbors``)."""
 
     idx: torch.Tensor   # int64 station indices into the tile station pool
     dist: torch.Tensor  # km; 0 where masked
@@ -103,6 +105,32 @@ def select_neighbors(
         dist, idx = torch.topk(d, k, dim=-1, largest=False, sorted=True)
         idx = torch.clamp(idx, max=S - 1)
         mask = torch.isfinite(dist)
+        dist = torch.where(mask, dist, torch.zeros_like(dist))
+        return Neighborhood(idx=idx, dist=dist, mask=mask)
+
+
+def select_loo_neighbors(
+    lon: torch.Tensor,
+    lat: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+) -> Neighborhood:
+    """Every month's leave-one-out neighbourhoods of a pool whose stations
+    are also the queries: for lon/lat (S,) and valid (S, M), the k best
+    cosine-scored stations valid in month m other than the query itself, as
+    one ``Neighborhood`` of (M, S, k) tensors. The cosine branch of
+    ``select_neighbors`` with the pool as cells and ``exclude_idx =
+    arange(S)``, a month at a time, gives the same (the remove-by-station
+    rule: a twin stays, at distance 0), up to the order of near-equal
+    scores on the card. One ``kernels.loo_select.loo_select`` call for all
+    M months (one launch on CUDA, with no S x S matrix); ``dist`` is
+    recomputed from the chosen idx as ``select_neighbors`` does, ``mask``
+    is where the score is finite. One ``geo.select_neighbors`` span, keyed
+    by M, covers the call."""
+    with span("geo.select_neighbors", valid.shape[1]):
+        score, idx = loo_select(unit_xyz(lon, lat), valid.contiguous(), k)
+        mask = torch.isfinite(score)
+        dist = great_circle_km(lon[:, None], lat[:, None], lon[idx], lat[idx])
         dist = torch.where(mask, dist, torch.zeros_like(dist))
         return Neighborhood(idx=idx, dist=dist, mask=mask)
 

@@ -20,7 +20,7 @@ import torch
 
 from topotpu_torch.core.config import InterpParams, VariogramParams
 from topotpu_torch.geo.distance import pairwise_km_from_xyz, unit_xyz
-from topotpu_torch.geo.neighbors import distance_weights, select_neighbors
+from topotpu_torch.geo.neighbors import distance_weights, select_loo_neighbors
 from topotpu_torch.interp.convert import to_tensor
 from topotpu_torch.kernels.wls import batched_wls, center_design
 from topotpu_torch.stats.variogram import empirical_variogram, fit_exp_variogram
@@ -46,8 +46,8 @@ def station_residuals(lon, lat, elev, tdi, valid_m, lst_m, norm_m, k: int,
 
     Trend design: covariates only (elev, tdi, lst_m), centred and scaled at
     the station; locality enters through the window weights."""
-    nbr = select_neighbors(lon, lat, lon, lat, valid_m, k=k,
-                           exclude_idx=torch.arange(lon.shape[0], device=lon.device))
+    nbr = select_loo_neighbors(lon, lat, valid_m[:, None], k)
+    nbr = nbr._make(t[0] for t in nbr)  # the one month's (S, k)
     w = distance_weights(nbr.dist, nbr.mask, iparams.weight_kernel)
     nbr_cov = torch.stack([elev[nbr.idx], tdi[nbr.idx], lst_m[nbr.idx]], dim=-1)
     X, _, _ = center_design(nbr_cov, torch.stack([elev, tdi, lst_m], dim=-1), w)

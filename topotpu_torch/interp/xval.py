@@ -12,7 +12,8 @@
 
 Leave-one-out is one batched run per month on the device: the "cells" are
 the station locations, and each station is left out of its own
-neighbourhood by index (``select_neighbors(exclude_idx=...)``). That is the
+neighbourhood by index (``select_loo_neighbors``, the 12 months in one call:
+one ``loo_select`` launch on the card). That is the
 reference's remove-by-station rule, and it removes only the station itself:
 a second station at identical coordinates (a twin) stays in the pool and
 enters the neighbourhood at distance 0 with the largest weight, exactly as
@@ -41,7 +42,7 @@ import torch
 
 from topotpu_torch.core.config import InterpParams, PPCAParams
 from topotpu_torch.geo.distance import unit_xyz
-from topotpu_torch.geo.neighbors import select_neighbors
+from topotpu_torch.geo.neighbors import select_loo_neighbors
 from topotpu_torch.interp.anoms import predict_daily_gathered
 from topotpu_torch.interp.convert import to_tensor
 from topotpu_torch.interp.point import _local_xy_km, group_days_by_month, month_layout
@@ -68,23 +69,19 @@ def _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, st
 def _loo_systems(st, k: int):
     """Every month's leave-one-out neighbourhoods and the arguments of
     ``krig_normals_indexed`` that solve them: 12 neighbourhoods (one a month,
-    by that month's validity, a station never its own neighbour) and the 12
-    systems of the one variable, the stations being both the table's rows
-    and the cells. Returns the neighbourhoods and (idx, dist, mask, table,
-    cells, pairs, shared)."""
+    by that month's validity, a station never its own neighbour; one
+    ``select_loo_neighbors`` call) and the 12 systems of the one variable,
+    the stations being both the table's rows and the cells. Returns the
+    neighbourhoods ((12, S, k) tensors) and (idx, dist, mask, table, cells,
+    pairs, shared)."""
     lon, lat = st["lon"], st["lat"]
     ref_lat = torch.mean(lat)
     x, y = _local_xy_km(lon, lat, ref_lat)
     table = station_table(st["elev"], st["tdi"], x, y, unit_xyz(lon, lat), st["lst"],
                           [(st["norm"], st["vario"])])
     cells = cell_table(st["elev"], st["tdi"], x, y, st["lst"])
-    own = torch.arange(lon.shape[0], device=lon.device)
-    nbrs = [select_neighbors(lon, lat, lon, lat, st["valid"][:, m], k=k, exclude_idx=own)
-            for m in range(12)]
-    return nbrs, (
-        torch.stack([n.idx for n in nbrs]), torch.stack([n.dist for n in nbrs]),
-        torch.stack([n.mask for n in nbrs]), table, cells, [(m, 0) for m in range(12)], False,
-    )
+    nbrs = select_loo_neighbors(lon, lat, st["valid"], k)
+    return nbrs, (*nbrs, table, cells, [(m, 0) for m in range(12)], False)
 
 
 def _loo_normals(args, params: InterpParams, k_anom: int | None = None):
@@ -183,10 +180,11 @@ def _loo_daily(inputs, params: InterpParams) -> dict:
     with span("xval.loo_daily", params.k_neighbors_anom):
         ka = min(params.k_neighbors_anom, params.k_neighbors)
         normal, ok, gains = _loo_normals(inputs.args, params, ka)
+        idx, mask = inputs.nbrs.idx[..., :ka], inputs.nbrs.mask[..., :ka]
         preds = [
             normal[m][:, None] + predict_daily_gathered(
-                gains[m][:, :ka], nbr.idx[:, :ka], nbr.mask[:, :ka], inputs.anoms_g[m])
-            for m, nbr in enumerate(inputs.nbrs)
+                gains[m][:, :ka], idx[m], mask[m], inputs.anoms_g[m])
+            for m in range(12)
         ]
         return _score_daily(preds, inputs.st["norm"], inputs.anoms_g, inputs.st["valid"], ok,
                             inputs.day_valid)
