@@ -15,7 +15,14 @@ within 2e-4 C (measured 4e-5 C), iteration counts within one. Monthly means
 of one series: the port's within 1e-5 C of float64 (measured 2.7e-6 C), the
 JAX package's numpy float32 within 3e-5 C of the port's (measured 1.1e-5 C).
 The x-val scores agree within 1e-4 C.
+
+A share of the targets (``targets=``) is held against the whole-network call
+and against the benchmark's plain reference (``benchmark/reference/infill.py``,
+float64). Tolerances are given where they are used.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +41,12 @@ from topotpu_torch.infill.post_infill import changepoint_flags
 from topotpu_torch.interp.xval import xval_infill
 from topotpu_torch.io.synthetic import station_network_from_world
 from jax_pha_core import load_jax_pha
+
+# the benchmark's plain reference, as benchmark/tests import it (appended, so
+# that it shadows nothing of the test path)
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "benchmark"))
+from reference import infill as ref_infill  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -270,3 +283,165 @@ def test_xval_infill_matches_jax(net):
         np.testing.assert_allclose(got[f], want[f], rtol=0, atol=1e-4, err_msg=f)
     # tests/test_xval.py's bars
     assert got["mae"] < 1.5 and abs(got["bias"]) < 0.2
+
+
+# --- a share of the targets against the whole network (``targets=``) --------
+
+FIELDS = ("filled", "obs_mask", "norms", "n_iters", "predictors", "bad")
+
+
+def _branch(monkeypatch, branch):
+    """Send ``select_predictors`` to its numpy or its device branch."""
+    if branch == "device":
+        monkeypatch.setattr(tpipe, "DEVICE_SELECT_FLOPS", 0.0)
+
+
+@pytest.mark.parametrize("branch", ["numpy", "device"])
+@pytest.mark.parametrize("coords", [True, False])
+def test_select_predictors_target_rows(net, monkeypatch, branch, coords):
+    """The rows of a share against the whole call's rows of those targets,
+    each branch (its target rows are other matrix products than the whole
+    call's, so sets may part at ties only), and never the target itself."""
+    world, _, _, obs = net
+    obs = obs.copy()
+    obs[35:, :1000] = np.nan  # < 30 days overlap with the outage stations
+    mask = np.isfinite(obs)
+    ll = (world.stn_lon, world.stn_lat) if coords else (None, None)
+    _branch(monkeypatch, branch)
+    calls = tpipe._device_select_predictors.calls
+    whole = tpipe.select_predictors(obs, mask, 12, *ll, device="cpu")
+    t = np.array([39, 0, 17, 36, 5, 22])
+    got = tpipe.select_predictors(obs, mask, 12, *ll, device="cpu", targets=t)
+    ran = tpipe._device_select_predictors.calls - calls
+    assert ran == (2 if branch == "device" else 0)
+    assert got.shape == (len(t), 12) and got.dtype == np.int32
+    assert not (got == t[:, None]).any()
+    score = _scores64(_standardised(obs, mask), mask, world.stn_lon, world.stn_lat)
+    if not coords:
+        score = np.where(score < 1.0, np.where(score < 0, -1.0, 0.0), score)
+    _assert_sets_agree_away_from_ties(got, whole[t], score[t])
+
+
+def test_select_predictors_threshold_counts_target_rows(net, monkeypatch):
+    """The branch follows the gram rows computed, 6 n_t S T: a threshold
+    between a share's and the whole network's sends only the whole call to
+    the device."""
+    _, _, _, obs = net
+    mask = np.isfinite(obs)
+    S, T = obs.shape
+    monkeypatch.setattr(tpipe, "DEVICE_SELECT_FLOPS", 6.0 * 10 * S * T + 1)
+    calls = tpipe._device_select_predictors.calls
+    tpipe.select_predictors(obs, mask, 12, device="cpu", targets=np.arange(10))
+    assert tpipe._device_select_predictors.calls == calls
+    tpipe.select_predictors(obs, mask, 12, device="cpu")
+    assert tpipe._device_select_predictors.calls == calls + 1
+
+
+@pytest.mark.parametrize("bad_targets", [np.array([40]), np.array([-1]), np.array([]),
+                                         np.array([[1, 2]]), np.array([1.0])])
+def test_targets_outside_the_network_are_refused(net, bad_targets):
+    _, days, _, obs = net
+    with pytest.raises(ValueError):
+        infill_network(obs, days.month_idx, PARAMS, device="cpu", targets=bad_targets)
+
+
+@pytest.mark.parametrize("branch", ["numpy", "device"])
+def test_default_is_the_whole_network_unchanged(net, monkeypatch, branch):
+    """``targets=None`` is the whole-network call as it was before shares
+    existed, bit for bit: here against that call's loop, written out from the
+    module's own parts (selection of every station, batches by difficulty
+    with the padding wrapped to the first targets, the adjusted targets
+    written into a copy of the network, normals from the filled series)."""
+    world, days, _, obs = net
+    _branch(monkeypatch, branch)
+    kw = dict(stn_lon=world.stn_lon, stn_lat=world.stn_lat)
+    got = infill_network(obs, days.month_idx, PARAMS, device="cpu", **kw)
+
+    S, T = obs.shape
+    mask = np.isfinite(obs)
+    preds = tpipe.select_predictors(obs, mask, PARAMS.n_neighbors, device="cpu", **kw)
+    obs_t = torch.from_numpy(np.where(mask, obs, 0.0).astype(np.float32))
+    mask_t, midx = torch.from_numpy(mask), torch.from_numpy(days.month_idx).long()
+    preds_t = torch.from_numpy(preds).long()
+    filled, iters = obs_t.clone(), torch.zeros(S, dtype=torch.int32)
+    B = PARAMS.batch_size
+    pad_to = -(-S // B) * B
+    order = torch.from_numpy(np.argsort(mask.sum(1), kind="stable")[np.arange(pad_to) % S])
+    for start in range(0, pad_to, B):
+        tgt = order[start : start + B]
+        cols = torch.cat([tgt[:, None], preds_t[tgt]], dim=1)
+        tf, ni = tpipe._infill_batch(obs_t, mask_t, cols, midx, PARAMS.n_components,
+                                     PARAMS.max_iters, PARAMS.tol)
+        filled[tgt], iters[tgt] = tf, ni
+    want = dict(filled=filled.numpy(), obs_mask=mask, n_iters=iters.numpy(), predictors=preds,
+                norms=tpipe.monthly_normals(filled, days.month_idx, "cpu"),
+                bad=mask.sum(1) < min(365, T // 2))
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), want[f], err_msg=f)
+
+
+@pytest.mark.parametrize("branch", ["numpy", "device"])
+@pytest.mark.parametrize("n_shares", [2, 3])
+def test_shares_assemble_the_whole_network(net, monkeypatch, branch, n_shares):
+    """Station i in share i % n_shares, each share one call against all 40
+    stations: assembled, the shares give the whole-network call. Predictor
+    sets agree away from ties (a share's gram rows are other products than
+    the whole call's); where the sets are equal the EM ran on the same
+    series in other batches, so the batch-composition tolerances of
+    ``test_infill_network_batch_composition_invariant`` hold (imputed values
+    within 3e-3 C, normals within 1e-3 C, iteration counts within one;
+    measured 4.96e-5 / 9.16e-5 C and 3.8e-6 C, counts equal); observed
+    entries come back exactly."""
+    world, days, _, obs = net
+    _branch(monkeypatch, branch)
+    kw = dict(stn_lon=world.stn_lon, stn_lat=world.stn_lat)
+    whole = infill_network(obs, days.month_idx, PARAMS, device="cpu", **kw)
+    got = {f: np.zeros_like(getattr(whole, f)) for f in FIELDS}
+    for i in range(n_shares):
+        t = np.arange(i, len(obs), n_shares)
+        res = infill_network(obs, days.month_idx, PARAMS, device="cpu", targets=t, **kw)
+        assert res.filled.shape == (len(t), obs.shape[1]) and res.norms.shape == (len(t), 12)
+        for f in FIELDS:
+            got[f][t] = getattr(res, f)
+    mask = np.isfinite(obs)
+    np.testing.assert_array_equal(got["obs_mask"], mask)
+    np.testing.assert_array_equal(got["bad"], whole.bad)
+    np.testing.assert_array_equal(got["filled"][mask], obs[mask])
+    score = _scores64(_standardised(obs, mask), mask, world.stn_lon, world.stn_lat)
+    _assert_sets_agree_away_from_ties(got["predictors"], whole.predictors, score)
+    same = (np.sort(got["predictors"], 1) == np.sort(whole.predictors, 1)).all(1)
+    assert same.sum() >= len(obs) - 2
+    np.testing.assert_allclose(got["filled"][same], whole.filled[same], rtol=0, atol=3e-3)
+    np.testing.assert_allclose(got["norms"][same], whole.norms[same], rtol=0, atol=1e-3)
+    assert np.abs(got["n_iters"][same].astype(int) - whole.n_iters[same]).max() <= 1
+
+
+@pytest.mark.parametrize("branch", ["numpy", "device"])
+def test_share_matches_the_plain_reference(net, monkeypatch, branch):
+    """A share against the benchmark's plain reference in float64
+    (``benchmark/reference/infill.py``): each chosen predictor scores within
+    ``TIE_MARGIN`` of the 12th best float64 score over the whole network
+    (the float32 grams part near-ties by ~1e-6), and the reference's EM on
+    the chosen set gives the filled series within 3e-3 C and the normals
+    within 1e-4 C: both EMs stop at the 200-iteration cap far from
+    converged, where the float32 trajectory sits 6.8e-4 C / 1.5e-5 C from
+    the float64 one (measured); the reference in TF32, the precision below
+    the configuration's, reads 0.55 C / 0.020 C. Iteration counts within
+    one; observed entries exact."""
+    world, days, _, obs = net
+    _branch(monkeypatch, branch)
+    t = np.arange(3, len(obs), 4)
+    got = infill_network(obs, days.month_idx, PARAMS, device="cpu", targets=t,
+                         stn_lon=world.stn_lon, stn_lat=world.stn_lat)
+    obs64 = obs.astype(np.float64)
+    score = ref_infill.scores(obs64, world.stn_lon, world.stn_lat, t, "cpu")
+    chosen = got.predictors.astype(np.int64)
+    assert ref_infill.selection_faults(score, chosen, t, TIE_MARGIN) == 0
+    ppca = dict(n_components=PARAMS.n_components, n_neighbors=PARAMS.n_neighbors,
+                max_iters=PARAMS.max_iters, tol=PARAMS.tol)
+    want = ref_infill.reference(obs64, t, chosen, days.month_idx, ppca, "f64", "cpu")
+    np.testing.assert_allclose(got.filled, want["filled"], rtol=0, atol=3e-3)
+    np.testing.assert_allclose(got.norms, want["normals"], rtol=0, atol=1e-4)
+    assert np.abs(got.n_iters.astype(int) - want["n_iters"]).max() <= 1
+    seen = np.isfinite(obs[t])
+    np.testing.assert_array_equal(got.filled[seen], obs[t][seen])

@@ -343,6 +343,7 @@ def test_infill_records_one_em_step_a_trip_and_one_sync_a_flag_read(network, max
         res = infill_network(obs, days.month_idx, params, stn_lon=world.stn_lon,
                              stn_lat=world.stn_lat, device=CPU)
     (call,) = [r for r in got if r.name == "infill.call"]
+    assert call.key == (obs.shape[0], obs.shape[0])  # (targets, stations)
     assert {r.name for r in _children(got, call)} == {
         "infill.select_predictors", "infill.batch", "infill.fetch", "infill.normals"}
     batches = sorted(_children(got, call, "infill.batch"), key=lambda r: r.key)
@@ -352,8 +353,11 @@ def test_infill_records_one_em_step_a_trip_and_one_sync_a_flag_read(network, max
     assert [r.key for r in batches] == list(range(len(order) // batch))
     stopped = 0
     for b in batches:
-        steps = len(_children(got, b, "ppca.em_step"))
-        syncs = len(_children(got, b, "ppca.sync"))
+        (imp,) = _children(got, b, "ppca.impute")  # one EM a batch, keyed by its shape
+        assert imp.key == (batch, obs.shape[1], 1 + params.n_neighbors, params.n_components)
+        assert {r.name for r in _children(got, b)} == {"ppca.impute"}
+        steps = len(_children(got, imp, "ppca.em_step"))
+        syncs = len(_children(got, imp, "ppca.sync"))
         most = int(res.n_iters[order[b.key * batch : (b.key + 1) * batch]].max())
         if steps == max_iters:
             assert syncs == math.ceil(max_iters / 8)
@@ -362,6 +366,30 @@ def test_infill_records_one_em_step_a_trip_and_one_sync_a_flag_read(network, max
             assert most <= steps <= most + 7 and steps % 8 == 0
             assert syncs == steps // 8 + 1
     assert stopped == (len(batches) if max_iters == 200 else 0)
+
+
+@pytest.mark.parametrize("share", [False, True], ids=["whole", "share"])
+def test_infill_records_the_device_selection_keyed_by_its_rows(network, monkeypatch, share):
+    """With the device branch taken, one ``infill.select.device`` record
+    inside ``infill.select_predictors``, keyed (gram rows, stations, days),
+    and ``infill.call`` keyed (targets, stations)."""
+    from topotpu_torch.infill import pipeline
+
+    world, days, obs = network
+    monkeypatch.setattr(pipeline, "DEVICE_SELECT_FLOPS", 0.0)
+    S, T = obs.shape
+    targets = np.arange(1, S, 3) if share else None
+    n_t = S if targets is None else len(targets)
+    params = PPCAParams(n_components=4, n_neighbors=8, max_iters=5, batch_size=16)
+    with prof.recording() as got:
+        res = infill_network(obs, days.month_idx, params, stn_lon=world.stn_lon,
+                             stn_lat=world.stn_lat, device=CPU, targets=targets)
+    assert res.filled.shape == (n_t, T)
+    (call,) = [r for r in got if r.name == "infill.call"]
+    assert call.key == (n_t, S)
+    (sel,) = _children(got, call, "infill.select_predictors")
+    (dev,) = [r for r in got if r.name == "infill.select.device"]
+    assert dev.parent == sel.id and dev.key == (n_t, S, T)
 
 
 # ------------------------------------------------------- station parameters

@@ -112,56 +112,57 @@ def ppca_impute(
     q = n_components
     if q >= V:
         raise ValueError(f"n_components {q} must be < n_variables {V}")
-    dtype, dev = Y.dtype, Y.device
-    m = obs_mask.to(dtype)
+    with span("ppca.impute", (B, T, V, q)):
+        dtype, dev = Y.dtype, Y.device
+        m = obs_mask.to(dtype)
 
-    mu = _masked_mean(Y, obs_mask)                       # (B, V)
-    Yc = torch.where(obs_mask, Y - mu[:, None, :], 0.0)  # centred, missing = 0
-    W, sig2 = _init(Yc, m, q)
+        mu = _masked_mean(Y, obs_mask)                       # (B, V)
+        Yc = torch.where(obs_mask, Y - mu[:, None, :], 0.0)  # centred, missing = 0
+        W, sig2 = _init(Yc, m, q)
 
-    eyeq = torch.eye(q, dtype=dtype, device=dev)
-    X, c = Yc, torch.zeros((B, V), dtype=dtype, device=dev)
-    delta = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    n_it = torch.zeros((B,), dtype=torch.int32, device=dev)
-    # each trip's active set is computed at the end of the trip before it, so
-    # that a trip's launches all lie in its ppca.em_step span
-    active = delta > tol                                  # (B,)
-    any_active = active.any()
-    for it in range(max_iters):
-        if it % _CHECK_EVERY == 0:
-            with span("ppca.sync"):
-                stop = not bool(any_active)
-            if stop:
-                break
-        with span("ppca.em_step"):
-            recon, Wn, cn, sig2n = _em_step(X, W, c, sig2, T, eyeq)
-            Xn = torch.where(obs_mask, Yc, recon)
-            a3 = active[:, None, None]
-            Xn = torch.where(a3, Xn, X)
-            W = torch.where(a3, Wn, W)
-            c = torch.where(active[:, None], cn, c)
-            sig2 = torch.where(active, sig2n, sig2)
-            num = torch.sqrt((Xn - X).square().mean(dim=(-2, -1)))
-            den = torch.sqrt(Xn.square().mean(dim=(-2, -1)) + 1e-12)
-            # a frozen element's delta goes to 0 as in the JAX loop, but only
-            # in an iteration that loop would have run (some element active)
-            delta = torch.where(active, num / den, torch.where(any_active, 0.0, delta))
-            n_it = n_it + active.to(torch.int32)
-            X = Xn
-            active = delta > tol
-            any_active = active.any()
+        eyeq = torch.eye(q, dtype=dtype, device=dev)
+        X, c = Yc, torch.zeros((B, V), dtype=dtype, device=dev)
+        delta = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        n_it = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # each trip's active set is computed at the end of the trip before it, so
+        # that a trip's launches all lie in its ppca.em_step span
+        active = delta > tol                                  # (B,)
+        any_active = active.any()
+        for it in range(max_iters):
+            if it % _CHECK_EVERY == 0:
+                with span("ppca.sync"):
+                    stop = not bool(any_active)
+                if stop:
+                    break
+            with span("ppca.em_step"):
+                recon, Wn, cn, sig2n = _em_step(X, W, c, sig2, T, eyeq)
+                Xn = torch.where(obs_mask, Yc, recon)
+                a3 = active[:, None, None]
+                Xn = torch.where(a3, Xn, X)
+                W = torch.where(a3, Wn, W)
+                c = torch.where(active[:, None], cn, c)
+                sig2 = torch.where(active, sig2n, sig2)
+                num = torch.sqrt((Xn - X).square().mean(dim=(-2, -1)))
+                den = torch.sqrt(Xn.square().mean(dim=(-2, -1)) + 1e-12)
+                # a frozen element's delta goes to 0 as in the JAX loop, but only
+                # in an iteration that loop would have run (some element active)
+                delta = torch.where(active, num / den, torch.where(any_active, 0.0, delta))
+                n_it = n_it + active.to(torch.int32)
+                X = Xn
+                active = delta > tol
+                any_active = active.any()
 
-    recon, W, c, sig2 = _em_step(X, W, c, sig2, T, eyeq)
-    recon_full = recon + mu[:, None, :]
-    return PPCAResult(
-        filled=torch.where(obs_mask, Y, recon_full),
-        recon=recon_full,
-        W=W,
-        mu=mu + c,
-        sigma2=sig2,
-        n_iters=n_it,
-        converged=delta <= tol,
-    )
+        recon, W, c, sig2 = _em_step(X, W, c, sig2, T, eyeq)
+        recon_full = recon + mu[:, None, :]
+        return PPCAResult(
+            filled=torch.where(obs_mask, Y, recon_full),
+            recon=recon_full,
+            W=W,
+            mu=mu + c,
+            sigma2=sig2,
+            n_iters=n_it,
+            converged=delta <= tol,
+        )
 
 
 def _solve_right(Sxz, Szz):
