@@ -404,7 +404,8 @@ def stations():
 
 def test_nnghs_anoms_records_one_loo_daily_a_candidate_with_fetch_and_score(stations):
     """The sweep's inputs are made once (one ``xval.daily_inputs``, keyed by
-    the candidates it serves, holding the 12 months' selection: one
+    the candidates it serves, holding the anomalies' grouping on the device,
+    ``xval.group_anoms`` keyed (S, T), then the 12 months' selection: one
     ``geo.select_neighbors`` keyed by its 12 months), then one
     ``xval.loo_daily`` a candidate holds its scoring and its one fetch."""
     with prof.recording() as got:
@@ -414,8 +415,11 @@ def test_nnghs_anoms_records_one_loo_daily_a_candidate_with_fetch_and_score(stat
     (sweep,) = [r for r in got if r.name == "xval.sweep_anoms"]
     (inputs,) = _children(got, sweep, "xval.daily_inputs")
     assert inputs.key == 3
-    (sel,) = _children(got, inputs)
+    group, sel = _children(got, inputs)
+    assert (group.name, group.key) == ("xval.group_anoms", stations.anoms.shape)
     assert (sel.name, sel.key) == ("geo.select_neighbors", 12)
+    assert group.t1 <= sel.t0
+    assert sum(r.name == "xval.group_anoms" for r in got) == 1
     assert sum(r.name == "geo.select_neighbors" for r in got) == 1
     loo = _children(got, sweep, "xval.loo_daily")
     assert sorted(r.key for r in loo) == [8, 12, 16]

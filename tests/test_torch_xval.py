@@ -38,6 +38,7 @@ from topotpu.interp import xval as jxval
 from topotpu.io.synthetic import make_world
 from topotpu.oracle.pipeline import interp_cell_month
 from topotpu_torch.geo.neighbors import select_neighbors
+from topotpu_torch.interp import point as tpoint
 from topotpu_torch.interp import xval as txval
 from topotpu_torch.interp.point import group_days_by_month, month_layout, ungroup_days
 from topotpu_torch.io.synthetic import station_arrays_from_world
@@ -367,15 +368,18 @@ def test_nnghs_anoms_sweep_equals_one_daily_xval_a_candidate(st, device):
 
 @pytest.mark.parametrize("route", ["sweep", "single"])
 def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
-    """A three-candidate sweep groups the anomalies once and selects the 12
-    months' neighbourhoods once, in one ``select_loo_neighbors`` call, as one
-    ``xval_interp_daily`` call does; each candidate still brings back one
-    transfer of S + 15 values."""
-    calls = {"group_days_by_month": 0, "select_loo_neighbors": 0}
+    """A three-candidate sweep groups the anomalies once, on the device
+    (``group_days_by_month_device``; the numpy ``group_days_by_month`` not at
+    all), and selects the 12 months' neighbourhoods once, in one
+    ``select_loo_neighbors`` call, as one ``xval_interp_daily`` call does;
+    each candidate still brings back one transfer of S + 15 values."""
+    home = {"group_days_by_month_device": txval, "select_loo_neighbors": txval,
+            "group_days_by_month": tpoint}
+    calls = dict.fromkeys(home, 0)
     sizes = []
 
     def counting(name):
-        fn = getattr(txval, name)
+        fn = getattr(home[name], name)
 
         def counted(*a, **kw):
             calls[name] += 1
@@ -389,7 +393,7 @@ def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
         return cpu(self, *a, **kw)
 
     for name in calls:
-        monkeypatch.setattr(txval, name, counting(name))
+        monkeypatch.setattr(home[name], name, counting(name))
     monkeypatch.setattr(torch.Tensor, "cpu", fetched)
     base = InterpParams(k_neighbors=16, k_neighbors_anom=8)
     if route == "sweep":
@@ -397,5 +401,6 @@ def test_daily_xval_groups_and_selects_once_a_call(st, monkeypatch, route):
                                    base_params=base, device="cpu")
     else:
         txval.xval_interp_daily(*st.krig(), st.anoms, st.month_idx, base, "cpu")
-    assert calls == {"group_days_by_month": 1, "select_loo_neighbors": 1}
+    assert calls == {"group_days_by_month_device": 1, "select_loo_neighbors": 1,
+                     "group_days_by_month": 0}
     assert sizes == [len(st.lon) + 15] * (3 if route == "sweep" else 1)

@@ -582,7 +582,8 @@ def interp_points(
 
 
 # ---------------------------------------------------------------------------
-# Host-side day-axis (calendar <-> month-grouped) layout helpers, numpy only
+# Day-axis (calendar <-> month-grouped) layout helpers: numpy on the host, and
+# the month grouping of a station series on the device
 # ---------------------------------------------------------------------------
 
 
@@ -616,6 +617,23 @@ def group_days_by_month(series: np.ndarray, layout: MonthLayout) -> np.ndarray:
     out = np.zeros(lead + (12 * layout.dpm,), dtype=series.dtype)
     out[..., layout.slot_of_day] = series
     return out.reshape(lead + (12, layout.dpm))
+
+
+def group_days_by_month_device(series, layout: MonthLayout, device) -> torch.Tensor:
+    """(S, ndays) calendar series, numpy or a tensor -> (12, S, dpm) float32 on
+    ``device``, pads 0: ``np.moveaxis(group_days_by_month(series, layout), 1, 0)``
+    bit for bit, grouped on the device. The series goes over in calendar order
+    in one copy, from the caller's memory where it is a writeable contiguous
+    float32 array (else from one host copy that makes it so), and one index
+    write puts each day in its month's slot."""
+    if isinstance(series, torch.Tensor):
+        raw = series.to(device=device, dtype=torch.float32)
+    else:
+        raw = torch.from_numpy(np.require(series, np.float32, ("C", "W"))).to(device)
+    slot = torch.as_tensor(layout.slot_of_day, dtype=torch.long, device=device)
+    out = torch.zeros((12, raw.shape[0], layout.dpm), dtype=torch.float32, device=device)
+    out[slot // layout.dpm, :, slot % layout.dpm] = raw.T  # (ndays, S) rows
+    return out
 
 
 def ungroup_days(grouped: np.ndarray, layout: MonthLayout) -> np.ndarray:

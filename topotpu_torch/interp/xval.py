@@ -45,7 +45,7 @@ from topotpu_torch.geo.distance import unit_xyz
 from topotpu_torch.geo.neighbors import select_loo_neighbors
 from topotpu_torch.interp.anoms import predict_daily_gathered
 from topotpu_torch.interp.convert import to_tensor
-from topotpu_torch.interp.point import _local_xy_km, group_days_by_month, month_layout
+from topotpu_torch.interp.point import _local_xy_km, group_days_by_month_device, month_layout
 from topotpu_torch.kernels.krig_normals import cell_table, krig_normals_indexed, station_table
 from topotpu_torch.utils.profiling import span
 
@@ -158,15 +158,15 @@ def _daily_inputs(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm
                   stn_valid, stn_anoms, month_idx, k: int, runs: int):
     """What every daily leave-one-out run over these stations shares,
     whatever its ka, on ``device``: the station tensors, the anomalies
-    grouped by month (12, S, dpm), the slots that hold a day (12, dpm), and
-    ``_loo_systems`` at the normals ``k``. ``runs``, the number of runs it
-    serves, keys its span."""
+    grouped by month on the device (12, S, dpm), the slots that hold a day
+    (12, dpm), and ``_loo_systems`` at the normals ``k``. ``runs``, the
+    number of runs it serves, keys its span."""
     with span("xval.daily_inputs", runs):
         st = _stations(device, stn_lon, stn_lat, stn_elev, stn_tdi, stn_lst, stn_norm, stn_vario,
                        stn_valid)
         layout = month_layout(types.SimpleNamespace(month_idx=month_idx, ndays=len(month_idx)))
-        anoms_g = group_days_by_month(np.asarray(stn_anoms, np.float32), layout)
-        anoms_g = to_tensor(np.moveaxis(anoms_g, 1, 0), device)  # (12, S, dpm)
+        with span("xval.group_anoms", tuple(np.shape(stn_anoms))):
+            anoms_g = group_days_by_month_device(stn_anoms, layout, device)  # (12, S, dpm)
         nbrs, args = _loo_systems(st, k)
         return types.SimpleNamespace(st=st, anoms_g=anoms_g, nbrs=nbrs, args=args,
                                      day_valid=to_tensor(layout.day_valid, device, torch.bool))
